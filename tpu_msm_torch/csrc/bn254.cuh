@@ -1,0 +1,230 @@
+// BN254 base field and complete projective G1 formulas for one CUDA thread.
+//
+// One field core for every kernel of the port: 8 x u32 little-endian words,
+// CIOS Montgomery multiplication with R = 2^256, every result reduced to the
+// canonical range [0, P). The JAX package ran four cores for the TPU
+// (pallas_curve.mont_mul on u16 rows, f15.mont_mul_cios on 15-bit rows, the
+// DualField pairing and the MXU-REDC core); all compute a*b*2^-256 mod P, and
+// canonical outputs of the same formula sequence are bit-identical to each of
+// them and to the plain torch field (ops/field.py).
+//
+// The word layout is the packed wire format of tpu_msm's scan kernel: packed
+// row i = limb 2i | limb 2i+1 << 16 is exactly word i.
+//
+// Constants: P, -P^-1 mod 2^32 and R mod P, derived in
+// tpu_msm_torch/models/bn254.py (a CPU test checks these literals).
+#pragma once
+
+#include <cstdint>
+
+namespace bn254 {
+
+struct Fp {
+  uint32_t w[8];
+};
+
+__device__ __constant__ static const uint32_t kP[8] = {
+    0xd87cfd47u, 0x3c208c16u, 0x6871ca8du, 0x97816a91u,
+    0x8181585du, 0xb85045b6u, 0xe131a029u, 0x30644e72u};
+// -P^-1 mod 2^32
+static constexpr uint32_t kPInvNeg = 0xe4866389u;
+// R mod P: Montgomery one
+__device__ __constant__ static const uint32_t kOneMont[8] = {
+    0xc58f0d9du, 0xd35d438du, 0xf5c70b3du, 0x0a78eb28u,
+    0x7879462cu, 0x666ea36fu, 0x9a07df2fu, 0x0e0a77c1u};
+
+__device__ __forceinline__ Fp fp_zero() {
+  Fp r;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) r.w[i] = 0u;
+  return r;
+}
+
+__device__ __forceinline__ Fp fp_one_mont() {
+  Fp r;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) r.w[i] = kOneMont[i];
+  return r;
+}
+
+__device__ __forceinline__ bool fp_is_zero(const Fp& a) {
+  uint32_t acc = 0u;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) acc |= a.w[i];
+  return acc == 0u;
+}
+
+// t - P if t >= P, else t; t < 2P.
+__device__ __forceinline__ Fp fp_cond_sub_p(const Fp& t) {
+  Fp d;
+  uint64_t borrow = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    uint64_t v = (uint64_t)t.w[i] - kP[i] - borrow;
+    d.w[i] = (uint32_t)v;
+    borrow = (v >> 32) & 1u;
+  }
+  return borrow ? t : d;
+}
+
+__device__ __forceinline__ Fp fp_add(const Fp& a, const Fp& b) {
+  Fp s;
+  uint64_t carry = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    uint64_t v = (uint64_t)a.w[i] + b.w[i] + carry;
+    s.w[i] = (uint32_t)v;
+    carry = v >> 32;
+  }
+  // a + b < 2P < 2^255: no carry out of the top word.
+  return fp_cond_sub_p(s);
+}
+
+__device__ __forceinline__ Fp fp_sub(const Fp& a, const Fp& b) {
+  Fp d;
+  uint64_t borrow = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    uint64_t v = (uint64_t)a.w[i] - b.w[i] - borrow;
+    d.w[i] = (uint32_t)v;
+    borrow = (v >> 32) & 1u;
+  }
+  if (borrow) {
+    uint64_t carry = 0;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      uint64_t v = (uint64_t)d.w[i] + kP[i] + carry;
+      d.w[i] = (uint32_t)v;
+      carry = v >> 32;
+    }
+  }
+  return d;
+}
+
+__device__ __forceinline__ Fp fp_dbl(const Fp& a) { return fp_add(a, a); }
+
+// 9a mod P (b3 = 3b = 9 for BN254), the add chain of ec_rows.py.
+__device__ __forceinline__ Fp fp_mul9(const Fp& a) {
+  return fp_add(fp_dbl(fp_dbl(fp_dbl(a))), a);
+}
+
+// CIOS Montgomery product a*b*2^-256 mod P, canonical. Each outer step adds
+// a_i*b and then one multiple of P that clears the low word; with P < 2^254
+// the running value stays < 2P, so nine words hold it.
+__device__ __forceinline__ Fp fp_mont_mul(const Fp& a, const Fp& b) {
+  uint32_t t[9];
+#pragma unroll
+  for (int i = 0; i < 9; ++i) t[i] = 0u;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    uint64_t c = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      c += (uint64_t)a.w[i] * b.w[j] + t[j];
+      t[j] = (uint32_t)c;
+      c >>= 32;
+    }
+    // The value is now < 2P + 2^32*P < 2^287, so the top word is < 2^31.
+    uint64_t top = (uint64_t)t[8] + c;
+    uint32_t m = t[0] * kPInvNeg;
+    c = ((uint64_t)m * kP[0] + t[0]) >> 32;
+#pragma unroll
+    for (int j = 1; j < 8; ++j) {
+      c += (uint64_t)m * kP[j] + t[j];
+      t[j - 1] = (uint32_t)c;
+      c >>= 32;
+    }
+    top += c;
+    t[7] = (uint32_t)top;
+    t[8] = (uint32_t)(top >> 32);
+  }
+  Fp r;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) r.w[i] = t[i];
+  return fp_cond_sub_p(r);
+}
+
+struct Proj {
+  Fp x, y, z;
+};
+
+__device__ __forceinline__ Proj proj_infinity() {
+  Proj p;
+  p.x = fp_zero();
+  p.y = fp_one_mont();
+  p.z = fp_zero();
+  return p;
+}
+
+// Complete projective P + Q (RCB Algorithm 7, a = 0, b3 = 9), the exact
+// field-op sequence of ec_rows.proj_add.
+__device__ __forceinline__ Proj proj_add(const Proj& p, const Proj& q) {
+  Fp t0 = fp_mont_mul(p.x, q.x);
+  Fp t1 = fp_mont_mul(p.y, q.y);
+  Fp t2 = fp_mont_mul(p.z, q.z);
+  Fp a = fp_mont_mul(fp_add(p.x, p.y), fp_add(q.x, q.y));
+  Fp b = fp_mont_mul(fp_add(p.x, p.z), fp_add(q.x, q.z));
+  Fp c = fp_mont_mul(fp_add(p.y, p.z), fp_add(q.y, q.z));
+  Fp t3 = fp_sub(fp_sub(a, t0), t1);
+  Fp t4 = fp_sub(fp_sub(c, t1), t2);
+  Fp y3t = fp_sub(fp_sub(b, t0), t2);
+  t0 = fp_add(fp_dbl(t0), t0);
+  t2 = fp_mul9(t2);
+  Fp z3t = fp_add(t1, t2);
+  t1 = fp_sub(t1, t2);
+  Fp y3p = fp_mul9(y3t);
+  Proj r;
+  r.x = fp_sub(fp_mont_mul(t3, t1), fp_mont_mul(t4, y3p));
+  r.y = fp_add(fp_mont_mul(t1, z3t), fp_mont_mul(y3p, t0));
+  r.z = fp_add(fp_mont_mul(z3t, t4), fp_mont_mul(t0, t3));
+  return r;
+}
+
+// Complete projective P + affine Q (RCB Algorithm 8, a = 0), the sequence of
+// ec_rows.proj_madd without its trailing select: the caller skips the add
+// for the (0, 0) infinity sentinel, which leaves P unchanged just the same.
+__device__ __forceinline__ Proj proj_madd(const Proj& p, const Fp& x2,
+                                          const Fp& y2) {
+  Fp t0 = fp_mont_mul(p.x, x2);
+  Fp t1 = fp_mont_mul(p.y, y2);
+  Fp a = fp_mont_mul(fp_add(p.x, p.y), fp_add(x2, y2));
+  Fp d = fp_mont_mul(y2, p.z);
+  Fp e = fp_mont_mul(x2, p.z);
+  Fp t3 = fp_sub(fp_sub(a, t0), t1);
+  Fp t4 = fp_add(d, p.y);
+  Fp y3t = fp_add(e, p.x);
+  t0 = fp_add(fp_dbl(t0), t0);
+  Fp t2 = fp_mul9(p.z);
+  Fp z3t = fp_add(t1, t2);
+  t1 = fp_sub(t1, t2);
+  Fp y3p = fp_mul9(y3t);
+  Proj r;
+  r.x = fp_sub(fp_mont_mul(t3, t1), fp_mont_mul(t4, y3p));
+  r.y = fp_add(fp_mont_mul(t1, z3t), fp_mont_mul(y3p, t0));
+  r.z = fp_add(fp_mont_mul(z3t, t4), fp_mont_mul(t0, t3));
+  return r;
+}
+
+// Element i of a (16, plane) u16-row array -> words; `stride` is the plane
+// size (distance between two limb rows).
+__device__ __forceinline__ Fp load_u16_rows(const uint32_t* __restrict__ rows,
+                                            size_t stride, size_t i) {
+  Fp r;
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+    r.w[k] = (rows[(2 * k) * stride + i] & 0xffffu) |
+             (rows[(2 * k + 1) * stride + i] << 16);
+  return r;
+}
+
+__device__ __forceinline__ void store_u16_rows(uint32_t* __restrict__ rows,
+                                               size_t stride, size_t i,
+                                               const Fp& a) {
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    rows[(2 * k) * stride + i] = a.w[k] & 0xffffu;
+    rows[(2 * k + 1) * stride + i] = a.w[k] >> 16;
+  }
+}
+
+}  // namespace bn254

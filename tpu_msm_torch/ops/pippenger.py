@@ -1,0 +1,299 @@
+"""Pippenger MSM main path on torch tensors (counterpart of
+`tpu_msm/ops/pippenger.py`, its fused path: `_window_heavy` per window, then
+`_sides_batched` over all windows, then `horner_fold`).
+
+With points sorted by digit, let X(p) be the EC prefix sum of the first p
+sorted points and s_b the first position of digit b. Since
+bucket_b = X(s_{b+1}) - X(s_b), each window sum telescopes:
+
+    sum_{b=1}^{M} b * bucket_b  =  M * X(n) - sum_{b=1}^{M} X(s_b)
+
+Each window runs: digits -> one stable sort carrying the packed coordinates
+-> the scan kernel (per-lane prefix sums) -> the histogram kernel (segment
+starts) -> one gather of the prefix sums at the bucket boundaries. Then
+`_sides_batched` adds the inter-lane carries and reduces the X(s_b) with the
+fold kernel and a rolled tree, and `horner_fold` joins the windows. Every EC
+add goes through `ec_add` (the padd kernel on the card, its plain version on
+the CPU); everything else is plain torch, as the JAX package left it to XLA.
+
+Dropped from the JAX fused path: the TPU width rules (`_PALLAS_MIN_WIDTH`,
+the `_FUSED_MAX_LANES // w` fanout clamp and the query padding to 4096). They
+change only the association of EC adds, so window sums stay projectively
+equal. Not ported yet: the per-window fallback `_msm_window`, GLV and
+streaming.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from tpu_msm_torch.ops import curve, field, hist
+from tpu_msm_torch.ops.cuda_curve import fold_add, padd, scan_madd
+from tpu_msm_torch.ops.curve import AffinePoint, ProjPoint
+from tpu_msm_torch.utils.config import MsmConfig, select_config
+
+# Coordinate row blocks of the scan kernel's 48-row output.
+_XYZ = (slice(0, 16), slice(16, 32), slice(32, 48))
+
+
+def _ceil_log2(x: int) -> int:
+    return max(0, (x - 1).bit_length())
+
+
+def ec_add(p: ProjPoint, q: ProjPoint) -> ProjPoint:
+    """Complete projective add of two (16, N) point batches (padd kernel)."""
+    return ProjPoint(*padd(*(a.contiguous() for a in (*p, *q))))
+
+
+def window_digits(scalar_limbs: torch.Tensor, cfg: MsmConfig) -> torch.Tensor:
+    """(16, N) standard-form scalar limbs -> (W', N) unsigned window digits
+    (W' = cfg.num_windows() rows, at most the 256 bits the limbs hold). With
+    c = 16 the digits are the limbs; with c = 8 they are limb halves."""
+    c = cfg.window_bits
+    w = cfg.num_windows()
+    if c == 16:
+        return scalar_limbs[:w]
+    if c == 8:
+        lo = scalar_limbs & 0xFF
+        hi = scalar_limbs >> 8
+        return torch.stack([lo, hi], dim=1).reshape(
+            2 * scalar_limbs.shape[0], scalar_limbs.shape[1])[:w]
+    raise ValueError(f"window_bits must be 8 or 16, got {c}")
+
+
+def signed_window_digits(scalar_limbs: torch.Tensor, cfg: MsmConfig):
+    """(16, N) scalar limbs -> (W, N) |digit| and (W, N) bool negation mask.
+
+    Balanced recoding: digit d plus the incoming carry becomes
+    d' = d + carry - 2^c (carry 1) when d + carry > 2^(c-1), else
+    d' = d + carry (carry 0); sum_i d'_i 2^(c*i) == scalar exactly."""
+    c = cfg.window_bits
+    half, full = 1 << (c - 1), 1 << c
+    raw = window_digits(scalar_limbs,
+                        dataclasses.replace(cfg, signed_digits=False))
+    zero = torch.zeros_like(raw[0])
+    carry = zero
+    abs_rows, neg_rows = [], []
+    for i in range(cfg.num_windows()):
+        d = (raw[i] if i < raw.shape[0] else zero) + carry
+        neg = d > half
+        abs_rows.append(torch.where(neg, full - d, d))
+        neg_rows.append(neg)
+        carry = neg.to(d.dtype)
+    return torch.stack(abs_rows), torch.stack(neg_rows)
+
+
+def pack_u16_rows(a: torch.Tensor) -> torch.Tensor:
+    """(16, N) canonical u16 rows -> (8, N) int32 words: row 2i in the low
+    half of word i, row 2i+1 in the high half (the u32 bit pattern)."""
+    v = a[0::2].to(torch.int64) | (a[1::2].to(torch.int64) << 16)
+    return torch.where(v >= 1 << 31, v - (1 << 32), v).to(torch.int32)
+
+
+def _sorted_scan_inputs(digits, ppx, ppy_w, lanes: int, steps: int):
+    """Stable digit sort of the packed coordinates into the scan kernel's
+    (8, steps, lanes) layout: sorted position p sits at lane p // steps,
+    step p % steps (`pippenger.py:302-305`). Both JAX `sort_impl` values give
+    this permutation."""
+    perm = torch.sort(digits, stable=True).indices
+
+    def lay(pp):
+        return (pp.index_select(1, perm).reshape(8, lanes, steps)
+                .transpose(1, 2).contiguous())
+
+    return lay(ppx), lay(ppy_w)
+
+
+def _segment_starts(digits, m: int, cfg: MsmConfig):
+    """s_b = #{i : digits[i] < b} for b = 1..m, from the histogram of the
+    unsorted digits (cfg.segment_starts == "hist", the only option so far;
+    this is where "hist_cols" dispatches once `digit_hist_pallas` is
+    ported)."""
+    return hist.segment_starts_hist(digits, m)
+
+
+def _window_heavy(digits, negm, ppx, ppy, n: int, cfg: MsmConfig):
+    """The per-window heavy stages: sort, scan, histogram, boundary gather.
+
+    Returns only small arrays: the lane totals (48, lanes), the prefix sums
+    at the m+1 queries s_1..s_m, n (48, m+1), the query lanes and the
+    zero-query mask. The O(n) transients die here; at n = 2^24 they are
+    about 1.1 GB of sorted payload (17 x 4 B x 2^24; the sort's int64
+    permutation and the layout copy add the same order again) and 3.2 GB
+    of scan output (48 x 4 B x 2^24). That is well inside the H100's
+    80 GB, so the port runs every size unstreamed."""
+    m = cfg.buckets_per_window()
+    lanes = cfg.scan_lanes
+    steps = digits.shape[0] // lanes
+    ppy_w = ppy[0] if negm is None else torch.where(negm[None, :], ppy[1],
+                                                    ppy[0])
+    sgx, sgy = _sorted_scan_inputs(digits, ppx, ppy_w, lanes, steps)
+    ys48 = scan_madd(sgx, sgy).reshape(48, steps * lanes)
+
+    starts = _segment_starts(digits, m, cfg)
+    queries = torch.cat([starts, starts.new_full((1,), n)])
+    is_zero = queries == 0
+    pos = queries.clamp(min=1) - 1
+    lq = pos // steps
+    kq = pos % steps
+    # Column k*lanes + l of the flat prefix array is step k of lane l.
+    loc48 = ys48.index_select(1, (kq * lanes + lq).to(torch.int64))
+    # A copy, not a view: a view would keep this window's whole prefix
+    # array alive until the sides stage (16 x 201 MB at 2^20).
+    totals = ys48[:, (steps - 1) * lanes:].clone()
+    return totals, loc48, lq, is_zero
+
+
+def _win_roll(a, wins: int, sh: int, seg: int):
+    """torch.roll along the last axis within each of `wins` equal segments
+    of length `seg` (lanes never cross window boundaries)."""
+    shp = a.shape
+    return torch.roll(a.reshape(shp[:-1] + (wins, seg)), sh, dims=-1).reshape(shp)
+
+
+def _mul_pow2(p: ProjPoint, k: int) -> ProjPoint:
+    """2^k · p by k complete self-adds (signed-digit window weight)."""
+    for _ in range(k):
+        p = ec_add(p, p)
+    return p
+
+
+def _mul_all_ones(p: ProjPoint, c: int) -> ProjPoint:
+    """(2^c - 1) · p by c-1 rounds of acc = 2·acc + p."""
+    acc = p
+    for _ in range(c - 1):
+        acc = ec_add(ec_add(acc, acc), p)
+    return acc
+
+
+def _sides_batched(totals48, loc48, lq, is_zero, cfg: MsmConfig) -> ProjPoint:
+    """All windows' side stages as full-width batched ops
+    (`pippenger.py:374-482`). Inputs are the stacked per-window outputs of
+    _window_heavy: totals48 (W, 48, L), loc48 (W, 48, Q), lq (W, Q),
+    is_zero (W, Q). Returns (W, 16, 1) window sums."""
+    w, _, lanes = totals48.shape
+    q = loc48.shape[-1]
+    m = cfg.buckets_per_window()
+    dev = totals48.device
+
+    def rows(a, s, width):  # (W, 48, X) -> (16, W*X) for one coordinate
+        return a[:, s].permute(1, 0, 2).reshape(16, w * width)
+
+    # Inter-lane inclusive scan, all windows at once, window-local rolls.
+    t = ProjPoint(*(rows(totals48, s, lanes) for s in _XYZ))
+    lane_idx = torch.arange(lanes, device=dev).repeat(w)
+    for i in range(_ceil_log2(lanes)):
+        sh = 1 << i
+        rolled = ProjPoint(*(_win_roll(a, w, sh, lanes) for a in t))
+        t = curve.select_point(lane_idx >= sh, ec_add(t, rolled), t)
+    carry = curve.select_point(
+        lane_idx >= 1, ProjPoint(*(_win_roll(a, w, 1, lanes) for a in t)),
+        curve.proj_infinity((w * lanes,), dev))  # exclusive lane carries
+
+    # Lane carry at each query's lane plus the in-lane prefix: X(s_b).
+    idx = lq.to(torch.int64)[None].expand(16, w, q)
+    car = ProjPoint(*(a.reshape(16, w, lanes).gather(2, idx).reshape(16, w * q)
+                      for a in carry))
+    local = ProjPoint(*(rows(loc48, s, q) for s in _XYZ))
+    xvals = curve.select_point(is_zero.reshape(-1),
+                               curve.proj_infinity((w * q,), dev),
+                               ec_add(car, local))
+    xv = ProjPoint(*(a.reshape(16, w, q) for a in xvals))
+    x_n = ProjPoint(*(a[:, :, m] for a in xv))  # (16, W)
+
+    # Each window's X(s_b) batch, padded to a power of two with infinities.
+    m_pad = 1 << _ceil_log2(m)
+    x_starts = ProjPoint(*(a[:, :, :m] for a in xv))
+    if m_pad != m:
+        inf = curve.proj_infinity((w, m_pad - m), dev)
+        x_starts = ProjPoint(*(torch.cat([a, b], dim=-1)
+                               for a, b in zip(x_starts, inf)))
+    m = m_pad
+
+    # Fold each window's batch down to `fanout` lanes, then a window-local
+    # rolled tree; lane 0 of each window ends with the window's sum.
+    fanout = 1 << (cfg.reduce_fanout.bit_length() - 1)
+    if m > fanout:
+        steps_f = m // fanout
+        pts = ProjPoint(*fold_add(*(
+            a.reshape(16, w, fanout, steps_f).permute(0, 3, 1, 2)
+            .reshape(16, steps_f, w * fanout).contiguous() for a in x_starts)))
+        width = fanout
+    else:
+        pts = ProjPoint(*(a.reshape(16, w * m) for a in x_starts))
+        width = m
+    for i in range(_ceil_log2(width)):
+        rolled = ProjPoint(*(_win_roll(a, w, -(1 << i), width) for a in pts))
+        pts = ec_add(pts, rolled)
+    sum_starts = ProjPoint(*(a.reshape(16, w, width)[:, :, 0] for a in pts))
+
+    # window_sum = M·X(n) - sum_b X(s_b), batched over the windows.
+    if cfg.signed_digits:
+        mx = _mul_pow2(x_n, cfg.window_bits - 1)
+    else:
+        mx = _mul_all_ones(x_n, cfg.window_bits)
+    out = ec_add(mx, curve.proj_neg(sum_starts))  # (16, W)
+    return ProjPoint(*(a.permute(1, 0)[:, :, None] for a in out))
+
+
+def window_sums(points: AffinePoint, scalar_limbs: torch.Tensor,
+                cfg: MsmConfig) -> ProjPoint:
+    """Per-window sums sum_b b·bucket_b for every window, (W, 16, 1).
+
+    points: (16, N) int32 Montgomery affine coordinates; scalar_limbs:
+    (16, N) int32 standard-form scalars below 2^cfg.scalar_bits."""
+    n = points.x.shape[1]
+    if scalar_limbs.shape[1] != n:
+        raise ValueError(f"points ({n}) and scalars ({scalar_limbs.shape[1]}) "
+                         "differ in count")
+    lanes = min(cfg.scan_lanes, 1 << _ceil_log2(max(n, 1)))
+    steps = -(-n // lanes)
+    pad = lanes * steps - n
+    cfg = dataclasses.replace(cfg, scan_lanes=lanes)
+    m = cfg.buckets_per_window()
+
+    if cfg.signed_digits:
+        digits, negm = signed_window_digits(scalar_limbs, cfg)
+        y_neg = field.neg_mod(points.y)  # for negative digits; -0 stays 0
+    else:
+        digits, negm, y_neg = window_digits(scalar_limbs, cfg), None, None
+
+    def pad_cols(a, value):
+        if not pad:
+            return a
+        return torch.cat([a, a.new_full((*a.shape[:-1], pad), value)], dim=-1)
+
+    # Padding positions: sentinel digit m+1 (sorts last, its bin is
+    # dropped) on the (0, 0) affine infinity, which the scan skips.
+    digits = pad_cols(digits, m + 1)
+    if negm is not None:
+        negm = pad_cols(negm, False)
+    ppx = pad_cols(pack_u16_rows(points.x), 0)
+    ppy = (pad_cols(pack_u16_rows(points.y), 0),
+           None if y_neg is None else pad_cols(pack_u16_rows(y_neg), 0))
+
+    smalls = [_window_heavy(digits[i], None if negm is None else negm[i],
+                            ppx, ppy, n, cfg)
+              for i in range(cfg.num_windows())]
+    return _sides_batched(*(torch.stack(s) for s in zip(*smalls)), cfg=cfg)
+
+
+def horner_fold(wsums: ProjPoint, c: int) -> ProjPoint:
+    """Fold (W, 16, 1) window sums into the MSM result, top window first,
+    c doublings between windows. Every add is an `ec_add` of width 1."""
+    acc = ProjPoint(*(a[-1] for a in wsums))
+    for widx in range(wsums.x.shape[0] - 2, -1, -1):
+        for _ in range(c):
+            acc = ec_add(acc, acc)
+        acc = ec_add(acc, ProjPoint(*(a[widx] for a in wsums)))
+    return acc
+
+
+def msm_projective(points: AffinePoint, scalar_limbs: torch.Tensor,
+                   cfg: MsmConfig | None = None) -> ProjPoint:
+    """sum_i scalars[i] * points[i] as a (16, 1) projective point."""
+    if cfg is None:
+        cfg = select_config(points.x.shape[1])
+    return horner_fold(window_sums(points, scalar_limbs, cfg), cfg.window_bits)
