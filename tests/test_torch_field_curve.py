@@ -173,3 +173,117 @@ def test_select_and_affine_to_proj_sentinel():
     assert bool(curve.proj_eq(pt, inf)[0]) and not bool(curve.proj_eq(pt, inf)[1])
     sel = curve.select_point(torch.tensor([False, True]), inf, pt)
     assert _affine(sel) == [None, None]
+
+
+# --------------------------------------------------------------------------
+# Jacobian ops against the JAX package's curve.py (bit-exact) and the
+# Jacobian kernels' plain versions against them (by jac_eq).
+# --------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def jac_case(edge_batch):
+    """P and Q of the edge batch as Jacobian points, (xλ², yλ³, λ) with a
+    random λ per lane (infinity (λ², λ³, 0)), Q also affine; the JAX ops'
+    results on them."""
+    from tpu_msm.ops import curve as jc
+
+    p, q, _, q2 = edge_batch
+    rng = np.random.RandomState(33)
+
+    def jac(pts):
+        xs, ys, zs = [], [], []
+        for pt in pts:
+            lam = int(rng.randint(1, 1 << 62))
+            x, y = (1, 1) if pt is None else pt
+            xs.append(x * lam ** 2 * R % P)
+            ys.append(y * lam ** 3 * R % P)
+            zs.append(0 if pt is None else lam * R % P)
+        return tuple(interop.ints_to_limbs(v) for v in (xs, ys, zs))
+
+    pj, qj = jac(p), jac(q)
+    jp = jc.JacPoint(*(jnp.asarray(a) for a in pj))
+    jq = jc.JacPoint(*(jnp.asarray(a) for a in qj))
+    jq_aff = jc.AffinePoint(jnp.asarray(q2[0]), jnp.asarray(q2[1]))
+    want = {
+        "jac_add_affine": jc.jac_add_affine(jp, jq_aff),
+        "jac_add": jc.jac_add(jp, jq),
+        "jac_double": jc.jac_double(jp),
+        "jac_neg": jc.jac_neg(jp),
+        "affine_to_jac": jc.affine_to_jac(jq_aff),
+        "jac_infinity": jc.jac_infinity((3,)),
+    }
+    want = {k: [np.array(a) for a in v] for k, v in want.items()}
+    return p, q, pj, qj, q2, want
+
+
+def _jac(a3):
+    return curve.JacPoint(*(_t(a) for a in a3))
+
+
+def _jac_affine(pt):
+    """Jacobian Montgomery tensors -> oracle points: (X/Z², Y/Z³)."""
+    out = []
+    for x, y, z in zip(*(_ints(a) for a in pt)):
+        if z == 0:
+            out.append(None)
+            continue
+        zi = pow(z * R_INV % P, P - 2, P)
+        out.append((x * R_INV * zi * zi % P, y * R_INV * zi ** 3 % P))
+    return out
+
+
+def test_jacobian_ops_match_jax(jac_case):
+    p, q, pj, qj, q2, want = jac_case
+    qa = AffinePoint(_t(q2[0]), _t(q2[1]))
+    got = {
+        "jac_add_affine": curve.jac_add_affine(_jac(pj), qa),
+        "jac_add": curve.jac_add(_jac(pj), _jac(qj)),
+        "jac_double": curve.jac_double(_jac(pj)),
+        "jac_neg": curve.jac_neg(_jac(pj)),
+        "affine_to_jac": curve.affine_to_jac(qa),
+        "jac_infinity": curve.jac_infinity((3,), "cpu"),
+    }
+    for name, pt in got.items():
+        for g, w in zip(pt, want[name]):
+            np.testing.assert_array_equal(interop.tensor_to_limbs(g), w,
+                                          err_msg=name)
+    # And the points are the oracle's.
+    want_sums = [oracle.ec_add(a, b) for a, b in zip(p, q)]
+    assert _jac_affine(got["jac_add"]) == want_sums
+    assert _jac_affine(got["jac_add_affine"]) == want_sums
+    assert _jac_affine(got["jac_double"]) == [oracle.ec_add(a, a) for a in p]
+
+
+def test_jacobian_plain_kernels_agree_with_jax_by_jac_eq(jac_case):
+    """jac_madd_plain / jac_add_plain (the Pallas row sequence) and the JAX
+    curve-level adders give the same points, by jac_eq in both packages."""
+    from tpu_msm.ops import curve as jc
+    from tpu_msm_torch.ops import cuda_curve
+
+    _, _, pj, qj, q2, want = jac_case
+    got = {"jac_add_affine": cuda_curve.jac_madd_plain(
+               *(_t(a) for a in (*pj, *q2))),
+           "jac_add": cuda_curve.jac_add_plain(*(_t(a) for a in (*pj, *qj)))}
+    for name, pt in got.items():
+        ref = curve.JacPoint(*(_t(a) for a in want[name]))
+        assert bool(curve.jac_eq(curve.JacPoint(*pt), ref).all()), name
+        jeq = jax.jit(jc.jac_eq)(
+            jc.JacPoint(*(jnp.asarray(interop.tensor_to_limbs(a)) for a in pt)),
+            jc.JacPoint(*(jnp.asarray(a) for a in want[name])))
+        assert bool(np.asarray(jeq).all()), name
+
+
+def test_jac_eq_and_infinity():
+    """jac_eq tells equal points under different scales apart from others;
+    infinity only equals infinity."""
+    x, y = interop.affine_points_to_limbs([oracle.GEN, oracle.GEN, None])
+    a = curve.affine_to_jac(AffinePoint(_t(x), _t(y)))
+    two = interop.ints_to_limbs([2 * R % P] * 3)
+    four, eight = (interop.ints_to_limbs([k * R % P] * 3) for k in (4, 8))
+    scaled = curve.JacPoint(field.mont_mul(a.x, _t(four)),
+                            field.mont_mul(a.y, _t(eight)),
+                            field.mont_mul(a.z, _t(two)))
+    assert curve.jac_eq(a, scaled).tolist() == [True, True, True]
+    dbl = curve.jac_double(a)
+    assert curve.jac_eq(a, dbl).tolist() == [False, False, True]
+    assert curve.jac_is_infinity(curve.jac_add(a, curve.jac_neg(a))).all()

@@ -1,9 +1,11 @@
-"""The port's MSM slice end to end on the CPU (plain kernel versions):
+"""The port's MSM end to end on the CPU (plain kernel versions):
 tpu_msm_torch.msm / msm_best against tpu_msm.msm on the JAX CPU backend, the
-pure-Python oracle and the native C++ engine. Results are compared as affine
-points: the port reduces the windows by the fused-path association
-(`_sides_batched`) while JAX on the CPU takes `_msm_window`, so only the
-points, not the projective coordinates, agree.
+pure-Python oracle and the native C++ engine, compared as affine points. At
+these sizes the scan lanes fall outside the fused route's rule, so the port
+takes the per-window route, as JAX on the CPU does (its window sums are
+held bit for bit in tests/test_torch_window.py). The tests named `*_fused_route`
+force the fused route, the main path on the card, through the same edge
+cases and configurations.
 
 The JAX reference runs at n = 256 with c = 8 (a c = 16 graph takes minutes
 to compile on the CPU).
@@ -79,8 +81,18 @@ def test_msm_best_matches_jax(jax_case, small_dispatch):
     assert tpu_msm_torch.msm_best(sl, (px, py), device="cpu") == want
 
 
-@pytest.mark.parametrize("case", ["zeros_ragged", "exceptional", "all_zero"])
-def test_msm_best_edge_cases(small_dispatch, case):
+@pytest.fixture
+def fused_only(monkeypatch):
+    """window_sums takes the fused route (the main path on the card) at any
+    lane count; reaching the per-window route fails the test."""
+    def per_window(*args, **kwargs):
+        raise AssertionError("the per-window route ran")
+
+    monkeypatch.setattr(pippenger, "fused_route", lambda lanes: True)
+    monkeypatch.setattr(pippenger, "_per_window_sums", per_window)
+
+
+def _edge_case(case):
     """>= 30 % zero scalars (the zero filter) at an n that is no multiple
     of the lanes; duplicate points, scalar r-1, infinity points and
     negative scalars in list form; all-zero scalars."""
@@ -106,20 +118,44 @@ def test_msm_best_edge_cases(small_dispatch, case):
         assert tpu_msm_torch.msm_best([], [], device="cpu") is None
 
 
-@pytest.mark.parametrize("cfg", [
-    # unsigned c = 8: m = 255 buckets pad to 256, M·X(n) by all-ones
+@pytest.mark.parametrize("case", ["zeros_ragged", "exceptional", "all_zero"])
+def test_msm_best_edge_cases(small_dispatch, case):
+    """The edge cases of _edge_case by the route rule (per window here)."""
+    _edge_case(case)
+
+
+@pytest.mark.parametrize("case", ["zeros_ragged", "exceptional"])
+def test_msm_best_edge_cases_fused_route(small_dispatch, fused_only, case):
+    """The same edge cases through the fused route."""
+    _edge_case(case)
+
+
+# unsigned c = 8: m = 255 buckets pad to 256, M·X(n) by all-ones; the main
+# path's c = 16 signed windows (m = 2^15) on 32-bit scalars.
+CONFIGS = pytest.mark.parametrize("cfg", [
     MsmConfig(window_bits=8, scan_lanes=16, reduce_fanout=32,
               signed_digits=False),
-    # the main path's c = 16 signed windows (m = 2^15) on 32-bit scalars
     MsmConfig(window_bits=16, scan_lanes=16, reduce_fanout=2048,
               scalar_bits=32, signed_digits=True),
 ], ids=["c8_unsigned", "c16_signed_32bit"])
-def test_msm_configs_match_native(cfg):
+
+
+def _config_case(cfg):
     px, py, sl = _inputs(45, 100)
     if cfg.scalar_bits < 254:
         sl[cfg.scalar_bits // 16:] = 0
     want = native.msm(px, py, sl)
     assert tpu_msm_torch.msm((px, py), sl, cfg=cfg, device="cpu") == want
+
+
+@CONFIGS
+def test_msm_configs_match_native(cfg):
+    _config_case(cfg)
+
+
+@CONFIGS
+def test_msm_configs_match_native_fused_route(fused_only, cfg):
+    _config_case(cfg)
 
 
 @pytest.mark.parametrize("c", [8, 16])

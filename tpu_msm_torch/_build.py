@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels.
 
-`nvcc` compiles every `csrc/*.cu` for sm_90a into one shared library with a
+`nvcc` compiles every `csrc/*.cu` for sm_90a, one process per source, all
+started together, and links the objects into one shared library with a
 plain C interface, `build/tpu_msm_torch/libtpu_msm_torch_kernels.so` under
 the repository root (git-ignored), at first use and again whenever a source
 is newer than the library. ctypes loads it. Nothing here runs at import.
@@ -24,8 +25,9 @@ BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "tpu_msm_torch"
 LIB_PATH = BUILD_DIR / "libtpu_msm_torch_kernels.so"
 LOG_PATH = BUILD_DIR / "build.log"
 
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+COMPILE_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                 "-Xptxas", "-v", "-c"]
 
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
@@ -58,18 +60,30 @@ def build() -> dict:
         log = LOG_PATH.read_text() if LOG_PATH.exists() else ""
         return {"built": False, "seconds": 0.0, "log": log, "lib": str(LIB_PATH)}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cmd = [_nvcc(), *NVCC_FLAGS]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    # Compile into a temporary file and rename it into place, so a process
-    # that has the old library loaded never sees a half-written one.
+    # Build in a temporary directory and rename the library into place, so
+    # a process that has the old library loaded never sees a half-written
+    # one.
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        cus = [p for p in srcs if p.suffix == ".cu"]
+        objs = [str(Path(tmp) / f"{p.stem}.o") for p in cus]
+        procs = [subprocess.Popen([nvcc, *COMPILE_FLAGS, "-o", o, str(p)],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for p, o in zip(cus, objs)]
+        logs = [proc.communicate()[0] for proc in procs]
+        log = "".join(logs)
+        failed = [p.name for p, proc in zip(cus, procs) if proc.returncode]
+        if failed:
+            raise KernelBuildError(f"nvcc failed on {failed}:\n{log}")
         out = Path(tmp) / LIB_PATH.name
-        proc = subprocess.run(
-            cmd + ["-o", str(out)] + [str(p) for p in srcs if p.suffix == ".cu"],
-            capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
+        proc = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", str(out),
+                               *objs], capture_output=True, text=True)
+        log += proc.stdout + proc.stderr
         if proc.returncode != 0:
-            raise KernelBuildError(f"nvcc failed ({proc.returncode}):\n{log}")
+            raise KernelBuildError(f"nvcc link failed ({proc.returncode}):\n"
+                                   f"{log}")
         os.replace(out, LIB_PATH)
     LOG_PATH.write_text(log)
     return {"built": True, "seconds": time.perf_counter() - t0, "log": log,
@@ -90,6 +104,10 @@ def load() -> ctypes.CDLL:
                 "tpu_msm_padd": [vp] * 9 + [i64, vp],
                 "tpu_msm_fold_add": [vp] * 6 + [i32, i32, vp],
                 "tpu_msm_digit_hist": [vp, i64, vp, i64, vp],
+                "tpu_msm_pmadd": [vp] * 8 + [i64, vp],
+                "tpu_msm_jac_madd": [vp] * 8 + [i64, vp],
+                "tpu_msm_jac_add": [vp] * 9 + [i64, vp],
+                "tpu_msm_scan_madd_rows": [vp] * 5 + [i32, i32, vp],
             }
             for name, argtypes in signatures.items():
                 fn = getattr(lib, name)

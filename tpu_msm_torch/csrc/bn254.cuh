@@ -181,8 +181,9 @@ __device__ __forceinline__ Proj proj_add(const Proj& p, const Proj& q) {
 }
 
 // Complete projective P + affine Q (RCB Algorithm 8, a = 0), the sequence of
-// ec_rows.proj_madd without its trailing select: the caller skips the add
-// for the (0, 0) infinity sentinel, which leaves P unchanged just the same.
+// ec_rows.proj_madd without its trailing select: proj_madd_complete below
+// skips the add for the (0, 0) infinity sentinel, which leaves P unchanged
+// just the same.
 __device__ __forceinline__ Proj proj_madd(const Proj& p, const Fp& x2,
                                           const Fp& y2) {
   Fp t0 = fp_mont_mul(p.x, x2);
@@ -203,6 +204,115 @@ __device__ __forceinline__ Proj proj_madd(const Proj& p, const Fp& x2,
   r.y = fp_add(fp_mont_mul(t1, z3t), fp_mont_mul(y3p, t0));
   r.z = fp_add(fp_mont_mul(z3t, t4), fp_mont_mul(t0, t3));
   return r;
+}
+
+// P + affine Q for the (0, 0) infinity sentinel as well: the select that
+// ec_rows.proj_madd ends with.
+__device__ __forceinline__ Proj proj_madd_complete(const Proj& p, const Fp& x2,
+                                                   const Fp& y2) {
+  if (fp_is_zero(x2) && fp_is_zero(y2)) return p;
+  return proj_madd(p, x2, y2);
+}
+
+// Jacobian coordinates (X, Y, Z), a point (X / Z^2, Y / Z^3); Z = 0 is
+// infinity. The formulas below are the sequences of ec_rows.jac_dbl_core,
+// jac_madd and jac_add (the Pallas row bodies _dbl_core, _madd_rows and
+// _add_rows), so their canonical outputs are the same bits.
+struct Jac {
+  Fp x, y, z;
+};
+
+// dbl-2009-l (a = 0): the fallback both adders take when P == Q.
+__device__ __forceinline__ Jac jac_dbl_core(const Jac& p) {
+  const Fp xx = fp_mont_mul(p.x, p.x);
+  const Fp yy = fp_mont_mul(p.y, p.y);
+  const Fp yyyy = fp_mont_mul(yy, yy);
+  const Fp xpyy = fp_add(p.x, yy);
+  const Fp t = fp_mont_mul(xpyy, xpyy);
+  const Fp d = fp_dbl(fp_sub(fp_sub(t, xx), yyyy));
+  const Fp e = fp_add(fp_dbl(xx), xx);
+  const Fp f = fp_mont_mul(e, e);
+  Jac r;
+  r.x = fp_sub(f, fp_dbl(d));
+  r.y = fp_sub(fp_mont_mul(e, fp_sub(d, r.x)), fp_dbl(fp_dbl(fp_dbl(yyyy))));
+  r.z = fp_mont_mul(fp_dbl(p.y), p.z);
+  return r;
+}
+
+// The select order of _finalize: P == Q doubles (the doubling is computed
+// only on such lanes, which gives the same bits as computing it everywhere
+// and selecting), P == -Q sets Z = 0, then an infinite Q returns P and an
+// infinite P returns Q.
+__device__ __forceinline__ Jac jac_finalize(const Jac& raw, const Jac& p,
+                                            const Jac& q, bool inf_p,
+                                            bool inf_q, bool h_zero,
+                                            bool r_zero) {
+  Jac o = raw;
+  if (h_zero && r_zero && !inf_p && !inf_q) o = jac_dbl_core(p);
+  if (h_zero && !r_zero && !inf_p && !inf_q) o.z = fp_zero();
+  if (inf_q) o = p;
+  if (inf_p) o = q;
+  return o;
+}
+
+// Jacobian P + affine Q, madd-2007-bl. Q = (0, 0) is infinity; it lifts to
+// (0, 0, 0), and to (x2, y2, Montgomery one) otherwise.
+__device__ __forceinline__ Jac jac_madd(const Jac& p, const Fp& x2,
+                                        const Fp& y2) {
+  const bool inf_q = fp_is_zero(x2) && fp_is_zero(y2);
+  const bool inf_p = fp_is_zero(p.z);
+  const Fp z1z1 = fp_mont_mul(p.z, p.z);
+  const Fp u2 = fp_mont_mul(x2, z1z1);
+  const Fp s2 = fp_mont_mul(y2, fp_mont_mul(p.z, z1z1));
+  const Fp h = fp_sub(u2, p.x);
+  const Fp rhalf = fp_sub(s2, p.y);
+  const Fp r = fp_dbl(rhalf);
+  const Fp hh = fp_mont_mul(h, h);
+  const Fp i = fp_dbl(fp_dbl(hh));
+  const Fp j = fp_mont_mul(h, i);
+  const Fp v = fp_mont_mul(p.x, i);
+  const Fp rr = fp_mont_mul(r, r);
+  Jac raw;
+  raw.x = fp_sub(fp_sub(rr, j), fp_dbl(v));
+  raw.y = fp_sub(fp_mont_mul(r, fp_sub(v, raw.x)),
+                 fp_dbl(fp_mont_mul(p.y, j)));
+  const Fp zph = fp_add(p.z, h);
+  raw.z = fp_sub(fp_sub(fp_mont_mul(zph, zph), z1z1), hh);
+  Jac q;
+  q.x = x2;
+  q.y = y2;
+  q.z = inf_q ? fp_zero() : fp_one_mont();
+  return jac_finalize(raw, p, q, inf_p, inf_q, fp_is_zero(h),
+                      fp_is_zero(rhalf));
+}
+
+// Jacobian P + Q, add-2007-bl.
+__device__ __forceinline__ Jac jac_add(const Jac& p, const Jac& q) {
+  const bool inf_p = fp_is_zero(p.z);
+  const bool inf_q = fp_is_zero(q.z);
+  const Fp z1z1 = fp_mont_mul(p.z, p.z);
+  const Fp z2z2 = fp_mont_mul(q.z, q.z);
+  const Fp u1 = fp_mont_mul(p.x, z2z2);
+  const Fp u2 = fp_mont_mul(q.x, z1z1);
+  const Fp s1 = fp_mont_mul(p.y, fp_mont_mul(q.z, z2z2));
+  const Fp s2 = fp_mont_mul(q.y, fp_mont_mul(p.z, z1z1));
+  const Fp h = fp_sub(u2, u1);
+  const Fp rhalf = fp_sub(s2, s1);
+  const Fp r = fp_dbl(rhalf);
+  const Fp h2 = fp_dbl(h);
+  const Fp i = fp_mont_mul(h2, h2);
+  const Fp j = fp_mont_mul(h, i);
+  const Fp v = fp_mont_mul(u1, i);
+  const Fp rr = fp_mont_mul(r, r);
+  Jac raw;
+  raw.x = fp_sub(fp_sub(rr, j), fp_dbl(v));
+  raw.y = fp_sub(fp_mont_mul(r, fp_sub(v, raw.x)),
+                 fp_dbl(fp_mont_mul(s1, j)));
+  const Fp zs = fp_add(p.z, q.z);
+  const Fp zh = fp_sub(fp_sub(fp_mont_mul(zs, zs), z1z1), z2z2);
+  raw.z = fp_mont_mul(zh, h);
+  return jac_finalize(raw, p, q, inf_p, inf_q, fp_is_zero(h),
+                      fp_is_zero(rhalf));
 }
 
 // Element i of a (16, plane) u16-row array -> words; `stride` is the plane

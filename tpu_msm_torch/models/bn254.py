@@ -25,6 +25,7 @@ FR = 218882428718392752222464057452572750885483644004160343436982041865758084956
 
 # y^2 = x^3 + 3 (a = 0, b = 3, so b3 = 3b = 9 in the RCB formulas);
 # generator (1, 2), cofactor 1.
+B_CURVE = 3
 GX = 1
 GY = 2
 

@@ -104,7 +104,13 @@ def select(cond, a, b):
     return u256.select(cond, a, b)
 
 
-# The field namespace the shared RCB formulas (ops/ec_rows.py) run over.
+def one_like(a):
+    """Montgomery one in the shape, device and dtype of `a`."""
+    return one_mont(a.shape[1:], a.device, a.dtype)
+
+
+# The field namespace the shared EC formulas (ops/ec_rows.py) run over.
 F = types.SimpleNamespace(
     mont_mul=mont_mul, add_mod=add_mod, sub_mod=sub_mod, dbl_mod=double_mod,
-    mul9=mul9, select=select, is_zero=is_zero)
+    mul9=mul9, select=select, is_zero=is_zero, zero_like=torch.zeros_like,
+    one_like=one_like)

@@ -7,9 +7,12 @@ order-free, so it is fed the unsorted digits and does not wait for the sort.
 
 `digit_hist` dispatches on the device: CPU tensors run `digit_hist_plain`
 (torch.bincount), CUDA tensors launch the kernel in `csrc/hist.cu`, which
-replaces `tpu_msm/ops/hist.py` digit_hist_pallas2 (:171) — what bounds it and
-what its design does about that is written there. `digit_hist.launches`
-and `digit_hist_plain.calls` count the two.
+replaces both TPU histogram kernels of `tpu_msm/ops/hist.py`:
+digit_hist_pallas2 (:171, segment_starts="hist") and digit_hist_pallas
+(:107, "hist_cols"). The two compute one function; the second fed the
+digits to the TPU's matrix unit in two layouts. What bounds the kernel and
+what its design does about that is written in `csrc/hist.cu`.
+`digit_hist.launches` and `digit_hist_plain.calls` count the two versions.
 """
 
 from __future__ import annotations
@@ -60,3 +63,10 @@ def segment_starts_hist(digits: torch.Tensor, m: int) -> torch.Tensor:
     """s_b for b = 1..m from UNSORTED (n,) digits with values <= m+1 (the
     value m+1 is the padding sentinel, counted and dropped). int32 (m,)."""
     return torch.cumsum(digit_hist(digits, m)[:m], dim=0, dtype=torch.int32)
+
+
+def segment_starts_hist_cols(sorted_digits: torch.Tensor, m: int) -> torch.Tensor:
+    """segment_starts="hist_cols" (`tpu_msm/ops/hist.py:137`
+    segment_starts_hist_pallas): the same s_b from the SORTED digits, as the
+    JAX pipeline feeds that option, through the same `digit_hist` kernel."""
+    return segment_starts_hist(sorted_digits, m)

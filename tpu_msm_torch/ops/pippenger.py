@@ -1,6 +1,4 @@
-"""Pippenger MSM main path on torch tensors (counterpart of
-`tpu_msm/ops/pippenger.py`, its fused path: `_window_heavy` per window, then
-`_sides_batched` over all windows, then `horner_fold`).
+"""Pippenger MSM on torch tensors (counterpart of `tpu_msm/ops/pippenger.py`).
 
 With points sorted by digit, let X(p) be the EC prefix sum of the first p
 sorted points and s_b the first position of digit b. Since
@@ -8,18 +6,36 @@ bucket_b = X(s_{b+1}) - X(s_b), each window sum telescopes:
 
     sum_{b=1}^{M} b * bucket_b  =  M * X(n) - sum_{b=1}^{M} X(s_b)
 
-Each window runs: digits -> one stable sort carrying the packed coordinates
--> the scan kernel (per-lane prefix sums) -> the histogram kernel (segment
-starts) -> one gather of the prefix sums at the bucket boundaries. Then
-`_sides_batched` adds the inter-lane carries and reduces the X(s_b) with the
-fold kernel and a rolled tree, and `horner_fold` joins the windows. Every EC
-add goes through `ec_add` (the padd kernel on the card, its plain version on
-the CPU); everything else is plain torch, as the JAX package left it to XLA.
+Two routes compute the window sums, as in the JAX package:
 
-Dropped from the JAX fused path: the TPU width rules (`_PALLAS_MIN_WIDTH`,
-the `_FUSED_MAX_LANES // w` fanout clamp and the query padding to 4096). They
-change only the association of EC adds, so window sums stay projectively
-equal. Not ported yet: the per-window fallback `_msm_window`, GLV and
+* the fused route (`_fused_sums`): `_window_heavy` per window (one stable
+  sort carrying the packed coordinates, the scan kernel, the histogram
+  kernel, one gather of the prefix sums at the bucket boundaries), then
+  `_sides_batched` over all windows (inter-lane carries, the X(s_b) fold
+  and rolled tree);
+* the per-window route (`_per_window_sums`, the JAX package's `_msm_window`
+  fallback): per window, a sort of point indices, one `pmadd` launch per
+  scan step, a Hillis–Steele scan of the lane totals, the query adds and
+  `ec_reduce`.
+
+Which route runs is the JAX package's device rule (`pippenger.py:630`,
+`_use_pallas` and `_FUSED_MAX_LANES`): the fused route iff the scan lanes
+are a multiple of 1024 between 1024 and 8192, else the per-window route.
+On the TPU the rule came from the Pallas kernels' (8, 128) tiling and VMEM
+budget; the CUDA kernels take any width. The port keeps the rule as it is
+and applies it on every device, so one configuration takes one route, with
+one association of EC adds, on the CPU, on the card and in the JAX package:
+the per-window sums are bit-identical to `tpu_msm.ops.pippenger.window_sums`
+on the JAX CPU backend, and the fused ones projectively equal to it.
+
+`horner_fold` then joins the windows. Every EC add goes through `ec_add` or
+`ec_madd` (the padd and pmadd kernels on the card, their plain versions on
+the CPU), every fold through the fold_add kernel; everything else is plain
+torch, as the JAX package left it to XLA.
+
+Dropped from the JAX fused route: the `_FUSED_MAX_LANES // w` fanout clamp
+and the query padding to 4096. They change only the association of EC
+adds, so window sums stay projectively equal. Not ported yet: GLV and
 streaming.
 """
 
@@ -30,12 +46,18 @@ import dataclasses
 import torch
 
 from tpu_msm_torch.ops import curve, field, hist
-from tpu_msm_torch.ops.cuda_curve import fold_add, padd, scan_madd
+from tpu_msm_torch.ops.cuda_curve import fold_add, padd, pmadd, scan_madd
 from tpu_msm_torch.ops.curve import AffinePoint, ProjPoint
 from tpu_msm_torch.utils.config import MsmConfig, select_config
 
 # Coordinate row blocks of the scan kernel's 48-row output.
 _XYZ = (slice(0, 16), slice(16, 32), slice(32, 48))
+
+# The JAX package's route rule: its Pallas kernels took lane counts that are
+# multiples of 1024 (`_PALLAS_MIN_WIDTH`), its whole-stage kernels at most
+# 8192 lanes (`_FUSED_MAX_LANES`).
+_FUSED_TILE = 1024
+_FUSED_MAX_LANES = 8192
 
 
 def _ceil_log2(x: int) -> int:
@@ -45,6 +67,17 @@ def _ceil_log2(x: int) -> int:
 def ec_add(p: ProjPoint, q: ProjPoint) -> ProjPoint:
     """Complete projective add of two (16, N) point batches (padd kernel)."""
     return ProjPoint(*padd(*(a.contiguous() for a in (*p, *q))))
+
+
+def ec_madd(acc: ProjPoint, pt: AffinePoint) -> ProjPoint:
+    """Complete projective + affine add of (16, N) batches (pmadd kernel);
+    (0, 0) affine points are infinity."""
+    return ProjPoint(*pmadd(*(a.contiguous() for a in (*acc, *pt))))
+
+
+def fused_route(lanes: int) -> bool:
+    """Whether `lanes` scan lanes take the fused route (module docstring)."""
+    return lanes % _FUSED_TILE == 0 and _FUSED_TILE <= lanes <= _FUSED_MAX_LANES
 
 
 def window_digits(scalar_limbs: torch.Tensor, cfg: MsmConfig) -> torch.Tensor:
@@ -96,21 +129,23 @@ def _sorted_scan_inputs(digits, ppx, ppy_w, lanes: int, steps: int):
     """Stable digit sort of the packed coordinates into the scan kernel's
     (8, steps, lanes) layout: sorted position p sits at lane p // steps,
     step p % steps (`pippenger.py:302-305`). Both JAX `sort_impl` values give
-    this permutation."""
-    perm = torch.sort(digits, stable=True).indices
+    this permutation. Returns (sorted_digits, sgx, sgy)."""
+    sorted_digits, perm = torch.sort(digits, stable=True)
 
     def lay(pp):
         return (pp.index_select(1, perm).reshape(8, lanes, steps)
                 .transpose(1, 2).contiguous())
 
-    return lay(ppx), lay(ppy_w)
+    return sorted_digits, lay(ppx), lay(ppy_w)
 
 
 def _segment_starts(digits, m: int, cfg: MsmConfig):
-    """s_b = #{i : digits[i] < b} for b = 1..m, from the histogram of the
-    unsorted digits (cfg.segment_starts == "hist", the only option so far;
-    this is where "hist_cols" dispatches once `digit_hist_pallas` is
-    ported)."""
+    """s_b = #{i : digits[i] < b} for b = 1..m by cfg.segment_starts
+    (`pippenger.py:239-247`): "hist" counts the digits in any order,
+    "hist_cols" is handed the sorted digits; both run the digit_hist
+    kernel."""
+    if cfg.segment_starts == "hist_cols":
+        return hist.segment_starts_hist_cols(digits, m)
     return hist.segment_starts_hist(digits, m)
 
 
@@ -129,10 +164,13 @@ def _window_heavy(digits, negm, ppx, ppy, n: int, cfg: MsmConfig):
     steps = digits.shape[0] // lanes
     ppy_w = ppy[0] if negm is None else torch.where(negm[None, :], ppy[1],
                                                     ppy[0])
-    sgx, sgy = _sorted_scan_inputs(digits, ppx, ppy_w, lanes, steps)
+    sorted_digits, sgx, sgy = _sorted_scan_inputs(digits, ppx, ppy_w, lanes,
+                                                  steps)
     ys48 = scan_madd(sgx, sgy).reshape(48, steps * lanes)
 
-    starts = _segment_starts(digits, m, cfg)
+    # "hist" is order-free: it counts the unsorted digits.
+    starts = _segment_starts(
+        digits if cfg.segment_starts == "hist" else sorted_digits, m, cfg)
     queries = torch.cat([starts, starts.new_full((1,), n)])
     is_zero = queries == 0
     pos = queries.clamp(min=1) - 1
@@ -238,46 +276,200 @@ def _sides_batched(totals48, loc48, lq, is_zero, cfg: MsmConfig) -> ProjPoint:
     return ProjPoint(*(a.permute(1, 0)[:, :, None] for a in out))
 
 
-def window_sums(points: AffinePoint, scalar_limbs: torch.Tensor,
-                cfg: MsmConfig) -> ProjPoint:
-    """Per-window sums sum_b b·bucket_b for every window, (W, 16, 1).
+# --------------------------------------------------------------------------
+# The per-window route (`pippenger.py:150-217,485-568`).
+# --------------------------------------------------------------------------
 
-    points: (16, N) int32 Montgomery affine coordinates; scalar_limbs:
-    (16, N) int32 standard-form scalars below 2^cfg.scalar_bits."""
+def _lane_inclusive_scan(totals: ProjPoint, lanes: int) -> ProjPoint:
+    """Hillis–Steele inclusive EC scan across the lane axis (last axis)."""
+    lane_idx = torch.arange(lanes, device=totals.x.device)
+    t = totals
+    for i in range(_ceil_log2(lanes)):
+        sh = 1 << i
+        rolled = ProjPoint(*(torch.roll(a, sh, dims=-1) for a in t))
+        t = curve.select_point(lane_idx >= sh, ec_add(t, rolled), t)
+    return t
+
+
+def _sequential_fold(pts: ProjPoint, lanes: int, steps: int) -> ProjPoint:
+    """(16, lanes*steps) -> (16, lanes): lane i sums points
+    [i*steps, (i+1)*steps), the jnp association (`pippenger.py:176-182`),
+    through the fold_add kernel on a (16, steps, lanes) layout."""
+    return ProjPoint(*fold_add(*(
+        a.reshape(16, lanes, steps).transpose(1, 2).contiguous()
+        for a in pts)))
+
+
+def _roll_reduce(pts: ProjPoint, width: int) -> ProjPoint:
+    """EC sum of (16, width) -> (16, 1) by log2(width) full-width rolled
+    adds; lane 0 ends with the total."""
+    for i in range(_ceil_log2(width)):
+        rolled = ProjPoint(*(torch.roll(a, -(1 << i), dims=-1) for a in pts))
+        pts = ec_add(pts, rolled)
+    return ProjPoint(*(a[..., :1] for a in pts))
+
+
+def ec_reduce(pts: ProjPoint, fanout: int) -> ProjPoint:
+    """EC sum of a (16, B) batch -> (16, 1): pad to a power of two with
+    infinities, fold down to `fanout` lanes (rounded down to a power of
+    two, as the fold's grouping needs; the JAX package takes only such
+    fanouts here), then a rolled tree."""
+    fanout = 1 << (fanout.bit_length() - 1)
+    b = pts.x.shape[-1]
+    b_pad = 1 << _ceil_log2(max(b, 1))
+    if b_pad != b:
+        inf = curve.proj_infinity((b_pad - b,), pts.x.device)
+        pts = ProjPoint(*(torch.cat([a, i], dim=-1) for a, i in zip(pts, inf)))
+        b = b_pad
+    if b > fanout:
+        pts = _sequential_fold(pts, fanout, b // fanout)
+        b = fanout
+    return _roll_reduce(pts, b)
+
+
+def _msm_window(digits, negm, px, py, n: int, cfg: MsmConfig) -> ProjPoint:
+    """One window's sum, (16, 1). digits: (n_pad,) with the m+1 sentinel at
+    the padding; negm: (n_pad,) negation mask or None; px: (16, n+1) and
+    py: ((16, n+1), (16, n+1) or None), the coordinates (y and -y) with an
+    infinity column appended, which the padding positions point at."""
+    c = cfg.window_bits
+    m = cfg.buckets_per_window()
+    n_pad = digits.shape[0]
+    lanes = cfg.scan_lanes
+    steps = n_pad // lanes
+    dev = digits.device
+
+    if negm is None:
+        py_w = py[0]
+    else:
+        negm_cols = torch.cat([negm[:n], negm.new_zeros(1)])
+        py_w = torch.where(negm_cols[None, :], py[1], py[0])
+    # lax.sort_key_val(digits, min(i, n)) is stable: its values are the
+    # stable order with the padding positions sent to column n.
+    sorted_digits, order = torch.sort(digits, stable=True)
+    sorted_idx = order.clamp(max=n)
+    # Lane l scans sorted positions [l*steps, (l+1)*steps); step k of every
+    # lane is one contiguous (16, lanes) operand.
+    perm = sorted_idx.reshape(lanes, steps).t().reshape(-1)
+
+    def lay(a):
+        return (a.index_select(1, perm).reshape(16, steps, lanes)
+                .transpose(0, 1).contiguous())
+
+    gx, gy = lay(px), lay(py_w)
+
+    acc = curve.proj_infinity((lanes,), dev)
+    prefix = []
+    for k in range(steps):  # one pmadd launch per step, as lax.scan runs it
+        acc = ec_madd(acc, AffinePoint(gx[k], gy[k]))
+        prefix.append(acc)
+    ys = ProjPoint(*(torch.stack(c, dim=1) for c in zip(*prefix)))
+    del gx, gy, prefix
+
+    inc = _lane_inclusive_scan(acc, lanes)
+    lane_idx = torch.arange(lanes, device=dev)
+    carry = curve.select_point(
+        lane_idx >= 1, ProjPoint(*(torch.roll(a, 1, dims=-1) for a in inc)),
+        curve.proj_infinity((lanes,), dev))  # exclusive lane carries
+
+    starts = _segment_starts(sorted_digits, m, cfg)
+    queries = torch.cat([starts, starts.new_full((1,), n)])  # s_1..s_m, n
+    is_zero = queries == 0
+    pos = queries.clamp(min=1).to(torch.int64) - 1
+    lq = pos // steps
+    kq = pos % steps
+    local = ProjPoint(*(a[:, kq, lq] for a in ys))
+    lane_carry = ProjPoint(*(a[:, lq] for a in carry))
+    xvals = curve.select_point(
+        is_zero, curve.proj_infinity((queries.shape[0],), dev),
+        ec_add(lane_carry, local))
+
+    x_n = ProjPoint(*(a[:, m:m + 1] for a in xvals))
+    sum_starts = ec_reduce(ProjPoint(*(a[:, :m] for a in xvals)),
+                           cfg.reduce_fanout)
+    if cfg.signed_digits:
+        mx = _mul_pow2(x_n, c - 1)
+    else:
+        mx = _mul_all_ones(x_n, c)
+    return ec_add(mx, curve.proj_neg(sum_starts))
+
+
+# --------------------------------------------------------------------------
+# Window sums: shared set-up, the two routes, the rule between them.
+# --------------------------------------------------------------------------
+
+def _scan_lanes(n: int, cfg: MsmConfig) -> int:
+    return min(cfg.scan_lanes, 1 << _ceil_log2(max(n, 1)))
+
+
+def _pad_cols(a, pad: int, value):
+    if not pad:
+        return a
+    return torch.cat([a, a.new_full((*a.shape[:-1], pad), value)], dim=-1)
+
+
+def _digits(points: AffinePoint, scalar_limbs, cfg: MsmConfig):
+    """Set-up both routes share: the scan lanes for n, the (W, n_pad)
+    digits with the sentinel m+1 on the padding (it sorts last and its bin
+    is dropped), the negation masks and -y (signed digits) or None.
+    Returns (cfg with the lanes, n, digits, negm, y_neg)."""
     n = points.x.shape[1]
     if scalar_limbs.shape[1] != n:
         raise ValueError(f"points ({n}) and scalars ({scalar_limbs.shape[1]}) "
                          "differ in count")
-    lanes = min(cfg.scan_lanes, 1 << _ceil_log2(max(n, 1)))
-    steps = -(-n // lanes)
-    pad = lanes * steps - n
+    lanes = _scan_lanes(n, cfg)
+    pad = lanes * -(-n // lanes) - n
     cfg = dataclasses.replace(cfg, scan_lanes=lanes)
-    m = cfg.buckets_per_window()
-
     if cfg.signed_digits:
         digits, negm = signed_window_digits(scalar_limbs, cfg)
+        negm = _pad_cols(negm, pad, False)
         y_neg = field.neg_mod(points.y)  # for negative digits; -0 stays 0
     else:
         digits, negm, y_neg = window_digits(scalar_limbs, cfg), None, None
+    return cfg, n, _pad_cols(digits, pad, cfg.buckets_per_window() + 1), \
+        negm, y_neg
 
-    def pad_cols(a, value):
-        if not pad:
-            return a
-        return torch.cat([a, a.new_full((*a.shape[:-1], pad), value)], dim=-1)
 
-    # Padding positions: sentinel digit m+1 (sorts last, its bin is
-    # dropped) on the (0, 0) affine infinity, which the scan skips.
-    digits = pad_cols(digits, m + 1)
-    if negm is not None:
-        negm = pad_cols(negm, False)
-    ppx = pad_cols(pack_u16_rows(points.x), 0)
-    ppy = (pad_cols(pack_u16_rows(points.y), 0),
-           None if y_neg is None else pad_cols(pack_u16_rows(y_neg), 0))
-
+def _fused_sums(points: AffinePoint, scalar_limbs, cfg: MsmConfig) -> ProjPoint:
+    """Window sums (W, 16, 1) by the fused route."""
+    cfg, n, digits, negm, y_neg = _digits(points, scalar_limbs, cfg)
+    pad = digits.shape[1] - n
+    # The padding positions carry the (0, 0) affine infinity: the scan
+    # skips it.
+    ppx = _pad_cols(pack_u16_rows(points.x), pad, 0)
+    ppy = (_pad_cols(pack_u16_rows(points.y), pad, 0),
+           None if y_neg is None else _pad_cols(pack_u16_rows(y_neg), pad, 0))
     smalls = [_window_heavy(digits[i], None if negm is None else negm[i],
                             ppx, ppy, n, cfg)
               for i in range(cfg.num_windows())]
     return _sides_batched(*(torch.stack(s) for s in zip(*smalls)), cfg=cfg)
+
+
+def _per_window_sums(points: AffinePoint, scalar_limbs,
+                     cfg: MsmConfig) -> ProjPoint:
+    """Window sums (W, 16, 1) by the per-window route, one `_msm_window`
+    each."""
+    cfg, n, digits, negm, y_neg = _digits(points, scalar_limbs, cfg)
+    inf = field.zero((1,), points.x.device)
+    px = torch.cat([points.x, inf], dim=1)
+    py = (torch.cat([points.y, inf], dim=1),
+          None if y_neg is None else torch.cat([y_neg, inf], dim=1))
+    wins = [_msm_window(digits[i], None if negm is None else negm[i],
+                        px, py, n, cfg)
+            for i in range(cfg.num_windows())]
+    return ProjPoint(*(torch.stack(c) for c in zip(*wins)))
+
+
+def window_sums(points: AffinePoint, scalar_limbs: torch.Tensor,
+                cfg: MsmConfig) -> ProjPoint:
+    """Per-window sums sum_b b·bucket_b for every window, (W, 16, 1), by the
+    route the scan lanes select (module docstring).
+
+    points: (16, N) int32 Montgomery affine coordinates; scalar_limbs:
+    (16, N) int32 standard-form scalars below 2^cfg.scalar_bits."""
+    if fused_route(_scan_lanes(points.x.shape[1], cfg)):
+        return _fused_sums(points, scalar_limbs, cfg)
+    return _per_window_sums(points, scalar_limbs, cfg)
 
 
 def horner_fold(wsums: ProjPoint, c: int) -> ProjPoint:

@@ -4,8 +4,8 @@
 The JAX package's knobs that only chose a TPU schedule are gone:
 `field_impl` (the CUDA kernels have one field core), `scan_step_batch`,
 `window_batch`, `backend` (the tensor's device decides) and the
-`segment_starts` options other than the histogram. GLV and the autotune table
-are not ported yet, so `select_config` returns the tuned 2^20 row of
+`segment_starts` options other than the two histograms. GLV and the autotune
+table are not ported yet, so `select_config` returns the tuned 2^20 row of
 `tpu_msm/utils/tuned_configs.json` for every size.
 """
 
@@ -31,16 +31,17 @@ class MsmConfig:
     # Balanced digits in [-2^(c-1), 2^(c-1)]: half the buckets, and the
     # M·X(n) term becomes c-1 doublings.
     signed_digits: bool = True
-    # Bucket segment starts from the digit histogram (ops/hist.py). Only
-    # "hist" is accepted; the field keeps the JAX config's shape until the
-    # "hist_cols" kernel (`digit_hist_pallas`) is ported as a second option.
+    # Bucket segment starts from the digit histogram (ops/hist.py): "hist"
+    # counts the unsorted digits on the fused path, "hist_cols" the sorted
+    # ones, as the JAX pipeline feeds its two histogram kernels. The
+    # per-window path counts the sorted digits either way.
     segment_starts: str = "hist"
 
     def __post_init__(self):
         if self.window_bits not in (8, 16):
             raise ValueError(
                 f"window_bits must be 8 or 16, got {self.window_bits}")
-        if self.segment_starts != "hist":
+        if self.segment_starts not in ("hist", "hist_cols"):
             raise ValueError(
                 f"unknown segment_starts {self.segment_starts!r}")
         for name in ("scan_lanes", "reduce_fanout", "scalar_bits"):
