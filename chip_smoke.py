@@ -5,23 +5,37 @@
 
 Builds the CUDA kernels from the sources in this checkout, holds each one
 against its plain PyTorch version on the card, times both at the shapes of
-the paths that run them, then drives three paths and requires the native
+the paths that run them, then drives four paths and requires the native
 C++ engine's result exactly:
 
   * the main path: `tpu_msm_torch.msm_best` at n = 2^12 and n = 2^20 on
-    bench-style inputs (the fused route: scan_madd, padd, fold_add,
+    bench-style inputs, with the tuned row `select_config` reads from the
+    autotune table (the fused route: scan_madd, padd, fold_add,
     digit_hist);
   * the per-window path: `tpu_msm_torch.msm` at n = 2^20 with 16384 scan
     lanes, once with each segment-start option (pmadd, padd, fold_add,
     digit_hist);
   * the profiler CLI: `--check-kernels` (every kernel, among them
     jac_madd, jac_add and scan_madd_rows) and `20 1 check 1`, each in a
-    subprocess.
+    subprocess;
+  * the roofline and tuning path: the field core's microbench
+    (`tpu_msm_torch.benches.montmul_benchmark`, the montmul_chain kernel)
+    at ilp 1 and 4 and `utils.profiling.roofline(20)` with its rate
+    (phase 7); `msm` with GLV at 2^18 and 2^20, timed beside the same
+    configuration without it (phase 8); `select_config` from the "cuda"
+    rows of the autotune table at 2^16, 2^18 and 2^20,
+    `bindings.benchmarks.benchmark_gpu_msm_best(16)` and `msm_best` at 2^16
+    (phase 9).
 
 Phase 4 also times the fused route at the per-window path's 16384 lanes,
-which the route rule does not take there. Phase 6 profiles `msm_device` at
-2^20 on each route (`tpu_msm_torch.cli.trace`): the device's busy time,
-idle share and time per kernel.
+which the route rule does not take there. Phase 6, last so that no timing
+runs after the profiler, profiles `msm_device` at 2^20 with the tuned row
+and on each route, and with and without GLV at 2^18 and 2^20
+(`tpu_msm_torch.cli.trace`): the device's busy time, idle share and time
+per kernel. Beside each kernel's time stand its bound
+(the larger of its 32-bit integer multiplies over the card's rate and its
+bytes over the memory rate, counted from this run's inputs) and, for the
+histogram, `torch.bincount`'s time.
 
 The kernel counters are set to 0 just before each path and read just after.
 One line per phase on stdout; then the kernels' JSON line, the card's
@@ -33,6 +47,7 @@ or outside the repository, it fails the same way. Imports no jax.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import statistics
@@ -200,17 +215,71 @@ def checker(entries, phase):
     return check
 
 
-def timer(phase):
-    """timed(name, shape, kernel_fn, plain_fn, ...): both by CUDA events."""
+# The card's peaks for a kernel's bound: the H100 SXM's HBM3 rate of
+# 3.35 TB/s, and utils/profiling.py's model of the
+# 32-bit integer multiply rate (64 a clock per SM) at this card's SM count
+# and maximum SM clock.
+HBM_BYTES_PER_S = 3.35e12
 
-    def timed(name, shape, fn, plain, plain_shape=None, inner=1):
+
+@functools.lru_cache(maxsize=1)
+def int_ops_per_s():
+    from tpu_msm_torch.utils import profiling
+
+    return (profiling.IMAD_PER_CLOCK_PER_SM * profiling.sm_count()
+            * profiling.sm_clock_hz())
+
+
+def ec_work(mont_muls, elems, rows):
+    """The work of an EC kernel: `mont_muls` Montgomery products of 264
+    32-bit multiplies each (utils/profiling.py), and `elems` elements of
+    `rows` 4-byte rows, inputs and outputs together."""
+    from tpu_msm_torch.utils import profiling
+
+    return {"ops": mont_muls * profiling.CIOS_MULS_PER_MONT_MUL,
+            "bytes": 4 * elems * rows}
+
+
+def finite(*coords):
+    """Columns of (rows, ...) coordinate tensors that are not the (0, 0)
+    affine infinity: the mixed adds the kernels skip no work for."""
+    import torch
+
+    nz = torch.zeros(coords[0].shape[1:], dtype=torch.bool,
+                     device=coords[0].device)
+    for c in coords:
+        nz |= (c != 0).any(dim=0)
+    return int(nz.sum().item())
+
+
+def bound(work):
+    """The least time the card could take: the larger of the operations
+    over the integer multiply rate and the bytes over the memory rate."""
+    ops_s = work["ops"] / int_ops_per_s()
+    bytes_s = work["bytes"] / HBM_BYTES_PER_S
+    return {"bound_ms": max(ops_s, bytes_s) * 1e3,
+            "bound_by": "operations" if ops_s >= bytes_s else "bytes"}
+
+
+def timer(phase):
+    """timed(name, shape, kernel_fn, plain_fn, work, ...): both by CUDA
+    events, the bound of `work` (see bound) beside them, and the library
+    call's time where one PyTorch call computes the same function."""
+
+    def timed(name, shape, fn, plain, work, plain_shape=None, inner=1,
+              library=None):
         ms = cuda_ms(fn, inner=inner)
         pms = cuda_ms(plain, inner=inner)
+        lib = cuda_ms(library, inner=inner) if library else None
         rec = {"shape": str(shape), "ms": ms, "plain_ms": pms,
-               "plain_shape": str(plain_shape or shape)}
+               "plain_shape": str(plain_shape or shape), **bound(work),
+               "library_ms": lib}
         log(phase, f"time {name} {shape}: kernel {ms:.4f} ms, plain "
             f"{pms:.4f} ms" + (f" (plain at {plain_shape})" if plain_shape
-                               else ""))
+                               else "")
+            + (f", library {lib:.4f} ms" if lib is not None else "")
+            + f"; bound {rec['bound_ms']:.4f} ms by {rec['bound_by']} "
+            f"({work['ops']} int ops, {work['bytes']} bytes)")
         return rec
 
     return timed
@@ -222,7 +291,8 @@ def timer(phase):
 
 KERNEL_FUNCTIONS = ("scan_madd_rows_kernel", "scan_madd_kernel",
                     "jac_madd_kernel", "jac_add_kernel", "pmadd_kernel",
-                    "padd_kernel", "fold_add_kernel", "digit_hist_kernel")
+                    "padd_kernel", "fold_add_kernel", "digit_hist_kernel",
+                    "montmul_chain_kernel")
 
 
 def phase_build():
@@ -241,10 +311,31 @@ def phase_build():
     _build.load()
 
 
+def main_shapes(dev):
+    """The shapes the main path gives the kernels at n = 2^20: the tuned
+    row's scan lanes and steps, windows, buckets (m, padded to m_pad) and
+    fold fanout, for the 2n points of 127-bit halves when it splits by
+    GLV."""
+    import dataclasses
+
+    from tpu_msm_torch import select_config
+
+    cfg = select_config(1 << 20, dev)
+    n = 1 << 20
+    if cfg.glv:
+        n, cfg = 2 * n, dataclasses.replace(cfg, glv=False, scalar_bits=127)
+    m = cfg.buckets_per_window()
+    return {"n": n, "lanes": cfg.scan_lanes, "steps": n // cfg.scan_lanes,
+            "w": cfg.num_windows(), "m": m,
+            "m_pad": 1 << (m - 1).bit_length(),
+            "fanout": 1 << (cfg.reduce_fanout.bit_length() - 1)}
+
+
 def phase_kernels(dev):
     """Each kernel against its plain version (bit-identical): first on edge
-    lanes, then at every shape the main path at 2^20 gives it, where both
-    are also timed. Returns the kernels' JSON entries."""
+    lanes, then at every shape the main path at 2^20 gives it with the
+    tuned row (main_shapes), where both are also timed. Returns the
+    kernels' JSON entries."""
     import torch
 
     from tpu_msm_torch.ops import cuda_curve as cc
@@ -278,52 +369,67 @@ def phase_kernels(dev):
     check("scan_madd", [8, 8, 4096], cc.scan_madd(gx, gy),
           cc.scan_madd_plain(gx, gy))
 
-    # ---- the main path's shapes (c = 16, 4096 lanes, 2^20): checked, then
+    # ---- the main path's shapes (the tuned row at 2^20): checked, then
     # kernel and plain version timed ----
     timed = timer(2)
+    sh = main_shapes(dev)
+    n, lanes, steps, w, m = (sh[k] for k in ("n", "lanes", "steps", "w", "m"))
+    log(2, f"main path at 2^20: {sh}")
 
-    # digit_hist at n = 2^20, m = 2^15, with one heavy bin.
-    m = 1 << 15
+    # digit_hist at n with m buckets, with one heavy bin.
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    digits = torch.randint(0, m + 2, (1 << 20,), generator=gen, device=dev,
+    digits = torch.randint(0, m + 2, (n,), generator=gen, device=dev,
                            dtype=torch.int32)
-    digits[: 1 << 17] = 12345
-    check("digit_hist", [1 << 20], hist.digit_hist(digits, m),
+    digits[: n // 8] = 12345
+    check("digit_hist", [n], hist.digit_hist(digits, m),
           hist.digit_hist_plain(digits, m))
+    nb = hist.num_bins(m)
     entries["digit_hist"].update(timed(
-        "digit_hist", [1 << 20], lambda: hist.digit_hist(digits, m),
-        lambda: hist.digit_hist_plain(digits, m)))
+        "digit_hist", [n], lambda: hist.digit_hist(digits, m),
+        lambda: hist.digit_hist_plain(digits, m),
+        {"ops": n, "bytes": 4 * (n + nb)},
+        library=lambda: torch.bincount(digits, minlength=nb)))
 
-    # scan at (8, 256, 4096); the plain version is timed at 8 of the 256
+    # scan at (8, steps, lanes); the plain version is timed at 8 of the
     # steps (one full plain scan takes seconds).
-    scan_x = torch.stack([pack_u16_rows(a_aff[0].roll(k, dims=1)[:, :4096])
-                          for k in range(256)], dim=1).contiguous()
-    scan_y = torch.stack([pack_u16_rows(a_aff[1].roll(k, dims=1)[:, :4096])
-                          for k in range(256)], dim=1).contiguous()
-    check("scan_madd", [8, 256, 4096], cc.scan_madd(scan_x, scan_y),
+    scan_x = torch.stack([pack_u16_rows(tile(a_aff[0].roll(k, dims=1), lanes))
+                          for k in range(steps)], dim=1).contiguous()
+    scan_y = torch.stack([pack_u16_rows(tile(a_aff[1].roll(k, dims=1), lanes))
+                          for k in range(steps)], dim=1).contiguous()
+    check("scan_madd", [8, steps, lanes], cc.scan_madd(scan_x, scan_y),
           cc.scan_madd_plain(scan_x, scan_y))
     entries["scan_madd"].update(timed(
-        "scan_madd", [8, 256, 4096], lambda: cc.scan_madd(scan_x, scan_y),
+        "scan_madd", [8, steps, lanes], lambda: cc.scan_madd(scan_x, scan_y),
         lambda: cc.scan_madd_plain(scan_x[:, :8].contiguous(),
                                    scan_y[:, :8].contiguous()),
-        plain_shape=[8, 8, 4096]))
+        ec_work(11 * finite(scan_x, scan_y), steps * lanes, 16 + 48),
+        plain_shape=[8, 8, lanes]))
+    del scan_x, scan_y
 
     # Projective operands for fold_add and padd, tiled to each width. Lane 0
     # (an infinity) is dropped so that the narrow widths add real points.
     big = [c[:, 1:] for c in
            to_proj(dev, edge_affine(dev, 8192, SEED + 5)[0], SEED + 6)]
 
-    # fold_add at (16, 16, 32768): _sides_batched's W x fanout lanes.
-    fold_main = [tile(c, 16 * 32768).reshape(16, 16, 32768) for c in big]
-    check("fold_add", [16, 16, 32768], cc.fold_add(*fold_main),
+    # fold_add: _sides_batched folds each window's m_pad X(s_b) down to the
+    # fanout, W x fanout lanes; the plain version is timed at 8 steps.
+    fsteps, fwidth = sh["m_pad"] // sh["fanout"], w * sh["fanout"]
+    fold_main = [tile(c, fsteps * fwidth).reshape(16, fsteps, fwidth)
+                 for c in big]
+    fold_cut = [c[:, :8].contiguous() for c in fold_main]
+    check("fold_add", [16, fsteps, fwidth], cc.fold_add(*fold_main),
           cc.fold_add_plain(*fold_main))
     entries["fold_add"].update(timed(
-        "fold_add", [16, 16, 32768], lambda: cc.fold_add(*fold_main),
-        lambda: cc.fold_add_plain(*fold_main)))
+        "fold_add", [16, fsteps, fwidth], lambda: cc.fold_add(*fold_main),
+        lambda: cc.fold_add_plain(*fold_cut),
+        ec_work(12 * fsteps * fwidth, (fsteps + 1) * fwidth, 48),
+        plain_shape=[16, 8, fwidth]))
+    del fold_main, fold_cut
 
-    # padd at every width of the main path: W·q query adds, the W·lanes
-    # lane-carry scan, the W·fanout rolled tree, M·X(n) at W, Horner at 1
-    # (each lane added to its neighbour; at width 1 that is a doubling).
+    # padd at every width of the main path: W·(m+1) query adds, the
+    # W·lanes lane-carry scan, the W·fanout rolled tree, M·X(n) at W, Horner
+    # at 1 (each lane added to its neighbour; at width 1 that is a
+    # doubling).
     def padd_at(width, inner):
         ops = [tile(c, width) for c in big]
         ops += [o.roll(1, dims=1).contiguous() for o in ops]
@@ -331,12 +437,13 @@ def phase_kernels(dev):
         if inner is None:
             return None
         return timed("padd", [16, width], lambda: cc.padd(*ops),
-                     lambda: cc.padd_plain(*ops), inner=inner)
+                     lambda: cc.padd_plain(*ops),
+                     ec_work(12 * width, width, 96 + 48), inner=inner)
 
-    # Widths 16 and 1 are timed per call over 100 calls: launch-bound.
-    first, *others = (r for r in (padd_at(w, k) for w, k in (
-        (16 * 32769, 1), (16 * 4096, 1), (16 * 2048, None), (16, 100),
-        (1, None))) if r is not None)
+    # Widths W and 1 are timed per call over 100 calls: launch-bound.
+    first, *others = (r for r in (padd_at(width, k) for width, k in (
+        (w * (m + 1), 1), (w * lanes, 1), (w * sh["fanout"], None),
+        (w, 100), (1, None))) if r is not None)
     entries["padd"].update(first, other_shapes=others)
     return entries
 
@@ -369,10 +476,12 @@ def counters():
     kernels = {"scan_madd": cc.scan_madd, "padd": cc.padd,
                "fold_add": cc.fold_add, "digit_hist": hist.digit_hist,
                "pmadd": cc.pmadd, "jac_madd": cc.jac_madd,
-               "jac_add": cc.jac_add, "scan_madd_rows": cc.scan_madd_rows}
+               "jac_add": cc.jac_add, "scan_madd_rows": cc.scan_madd_rows,
+               "montmul_chain": cc.montmul_chain}
     plains = [cc.scan_madd_plain, cc.padd_plain, cc.fold_add_plain,
               hist.digit_hist_plain, cc.pmadd_plain, cc.jac_madd_plain,
-              cc.jac_add_plain, cc.scan_madd_rows_plain]
+              cc.jac_add_plain, cc.scan_madd_rows_plain,
+              cc.montmul_chain_plain]
     return kernels, plains
 
 
@@ -493,20 +602,31 @@ def phase_new_kernels(dev):
     check("pmadd", [16, 16384], cc.pmadd(*ops), cc.pmadd_plain(*ops))
     entries["pmadd"].update(timed("pmadd", [16, 16384],
                                   lambda: cc.pmadd(*ops),
-                                  lambda: cc.pmadd_plain(*ops), inner=20))
-    # jac_madd and jac_add at 2^20 elements.
+                                  lambda: cc.pmadd_plain(*ops),
+                                  ec_work(11 * finite(*ops[3:]), 16384,
+                                          80 + 48), inner=20))
+    # jac_madd and jac_add at 2^20 elements. Both adders compute every
+    # lane (11 and 16 products), and the doubling (7 more) where P == Q.
     big = 1 << 20
+    same = tile(((a_aff[0] == b_aff[0]).all(dim=0)
+                 & (a_aff[1] == b_aff[1]).all(dim=0)
+                 & (a_aff[0] != 0).any(dim=0))[None, 1:], big)
+    dbl = int(same.sum().item())
     mops = [tile(t[:, 1:], big) for t in (*ja, *b_aff)]
     check("jac_madd", [16, big], cc.jac_madd(*mops), cc.jac_madd_plain(*mops))
     entries["jac_madd"].update(timed("jac_madd", [16, big],
                                      lambda: cc.jac_madd(*mops),
-                                     lambda: cc.jac_madd_plain(*mops)))
+                                     lambda: cc.jac_madd_plain(*mops),
+                                     ec_work(11 * big + 7 * dbl, big,
+                                             80 + 48)))
     del mops
     aops = [tile(t[:, 1:], big) for t in (*ja, *jb)]
     check("jac_add", [16, big], cc.jac_add(*aops), cc.jac_add_plain(*aops))
     entries["jac_add"].update(timed("jac_add", [16, big],
                                     lambda: cc.jac_add(*aops),
-                                    lambda: cc.jac_add_plain(*aops)))
+                                    lambda: cc.jac_add_plain(*aops),
+                                    ec_work(16 * big + 7 * dbl, big,
+                                            96 + 48)))
     del aops
     # scan_madd_rows at (16, 256, 4096); the plain version is timed at 8 of
     # the 256 steps.
@@ -520,6 +640,7 @@ def phase_new_kernels(dev):
         "scan_madd_rows", [16, 256, 4096], lambda: cc.scan_madd_rows(sx, sy),
         lambda: cc.scan_madd_rows_plain(sx[:, :8].contiguous(),
                                         sy[:, :8].contiguous()),
+        ec_work(11 * finite(sx, sy), 256 * 4096, 32 + 48),
         plain_shape=[16, 8, 4096]))
     return entries
 
@@ -556,9 +677,12 @@ def phase_window_kernels(dev, entries):
     digits = torch.sort(digits).values
     check("digit_hist", ["sorted", 1 << 20], hist.digit_hist(digits, m),
           hist.digit_hist_plain(digits, m))
+    nb = hist.num_bins(m)
     rec = timer(2)("digit_hist", ["sorted", 1 << 20],
                    lambda: hist.digit_hist(digits, m),
-                   lambda: hist.digit_hist_plain(digits, m))
+                   lambda: hist.digit_hist_plain(digits, m),
+                   {"ops": 1 << 20, "bytes": 4 * ((1 << 20) + nb)},
+                   library=lambda: torch.bincount(digits, minlength=nb))
     entries["digit_hist"].setdefault("other_shapes", []).append(rec)
 
 
@@ -618,19 +742,38 @@ def affine(res):
 
 
 def phase_profile(dev, inputs):
-    """One torch.profiler run of msm_device at 2^20 on each route
-    (tpu_msm_torch.cli.trace): the device's busy ms, span, idle share and
-    time per kernel, one JSON line each."""
+    """One torch.profiler run of msm_device (tpu_msm_torch.cli.trace) at
+    2^20 with the tuned row, on each route of MsmConfig's defaults, and at
+    2^18 and 2^20 with and without GLV (the tuned row with signed digits): the
+    device's busy ms, span, idle share and time and launches per kernel, one
+    JSON line each. Last of the phases, so that no timing runs after the
+    profiler."""
+    import dataclasses
+
+    from tpu_msm_torch import msm_device, select_config
     from tpu_msm_torch.cli.trace import msm_on_route, profile
     from tpu_msm_torch.utils import interop
     from tpu_msm_torch.utils.config import MsmConfig
 
+    def show(rec, **what):
+        log(6, "profile " + json.dumps({**what, **rec}))
+
     dpx, dpy, dsl = interop.limbs_to_device(*inputs[20], dev)
+    tuned = select_config(1 << 20, dev)
+    show(profile(lambda: msm_device(dpx, dpy, dsl, tuned)), log_n=20,
+         route="tuned", **dataclasses.asdict(tuned))
     for route, lanes in (("rule", 4096), ("rule", 16384), ("fused", 16384)):
         cfg = MsmConfig(scan_lanes=lanes)
-        rec = profile(lambda: msm_on_route(dpx, dpy, dsl, cfg, route))
-        log(6, "profile " + json.dumps({"log_n": 20, "route": route,
-                                        "lanes": lanes, **rec}))
+        show(profile(lambda: msm_on_route(dpx, dpy, dsl, cfg, route)),
+             log_n=20, route=route, lanes=lanes)
+    for log_n in (18, 20):
+        tpx, tpy, tsl = interop.limbs_to_device(*inputs[log_n], dev)
+        base = dataclasses.replace(select_config(1 << log_n, dev),
+                                   signed_digits=True)
+        for g in (False, True):
+            cfg = dataclasses.replace(base, glv=g)
+            show(profile(lambda: msm_device(tpx, tpy, tsl, cfg)),
+                 log_n=log_n, **dataclasses.asdict(cfg))
 
 
 def phase_cli():
@@ -664,6 +807,128 @@ def phase_cli():
     return launches
 
 
+MONTMUL_LANES = 65536
+
+
+def phase_montmul(dev, entries):
+    """montmul_chain against its plain version (bit-identical) at 65,536
+    lanes with ilp 1 and 2 at a cut of the chain (chain 8, steps 2), with
+    starting accumulators >= P on 4096 lanes; then both timed at the
+    microbench's shape (chain 64, steps 8, ilp 1)."""
+    from tpu_msm_torch.benches import montmul_benchmark as mb
+    from tpu_msm_torch.ops import cuda_curve as cc
+
+    check = checker(entries, 7)
+    x = mb.inputs(MONTMUL_LANES, dev)
+    a = x.clone()
+    a[15, :4096] = 0xFFFF  # >= P, as the XOR fold can make them
+    for ilp in (1, 2):
+        for label, start in (("a = x", x), ("a >= P", a)):
+            check("montmul_chain", [16, MONTMUL_LANES, "chain 8", "steps 2",
+                                    f"ilp {ilp}", label],
+                  cc.montmul_chain(start, x, 8, 2, ilp),
+                  cc.montmul_chain_plain(start, x, 8, 2, ilp))
+    entries["montmul_chain"].update(timer(7)(
+        "montmul_chain", [16, MONTMUL_LANES, "chain 64", "steps 8", "ilp 1"],
+        lambda: cc.montmul_chain(x, x, 64, 8, 1),
+        lambda: cc.montmul_chain_plain(x, x, 64, 8, 1),
+        ec_work(MONTMUL_LANES * 64 * 8, MONTMUL_LANES, 48)))
+
+
+def phase_roofline(dev):
+    """The roofline path: the microbench (`--lanes 65536 --chain 64
+    --steps 8 --iters 3`) at ilp 1 and 4, then `profiling.roofline(20)`
+    with the better rate; the counters over exactly these runs. Also the
+    IMAD-family instructions of the kernel's SASS. Returns the launches."""
+    from tpu_msm_torch.benches import montmul_benchmark as mb
+    from tpu_msm_torch.utils import profiling
+
+    reset_counts()
+    rates = []
+    for ilp in (1, 4):
+        out = mb.run(MONTMUL_LANES, 64, 8, 3, ilp)
+        c = out["cios"]
+        rates.append(c["mont_mul_per_s"])
+        log(7, f"montmul_benchmark ilp {ilp}: {c['mont_mul_per_s']:.1f} "
+            f"mont-mul/s in {c['seconds'] * 1e3:.4f} ms; model bound "
+            f"{c['roofline_per_s']:.1f} /s; model / measured "
+            f"{c['ratio_to_roofline']:.4f} ({out['card']})")
+    roof = profiling.roofline(20, kernel_rates={"cios": max(rates)})
+    log(7, "roofline " + json.dumps(roof))
+    launches = read_counts(7, ("montmul_chain",))
+    log(7, "sass " + json.dumps(mb.sass_counts()))
+    return launches
+
+
+def phase_glv(dev, inputs, expected):
+    """tpu_msm_torch.msm with glv=True at 2^18 and 2^20 against the native
+    engine, on the tuned row with signed digits; msm_device timed by CUDA
+    events with and without GLV, in turns, in this run; and the split's
+    own time."""
+    import dataclasses
+
+    import tpu_msm_torch
+    from tpu_msm_torch.ops import pippenger
+    from tpu_msm_torch.ops.curve import AffinePoint
+    from tpu_msm_torch.utils import interop
+
+    for log_n in (18, 20):
+        px, py, sl = inputs[log_n]
+        base = dataclasses.replace(tpu_msm_torch.select_config(1 << log_n,
+                                                               dev),
+                                   signed_digits=True)
+        reset_counts()
+        got = tpu_msm_torch.msm((px, py), sl,
+                                cfg=dataclasses.replace(base, glv=True),
+                                device=dev)
+        if got != expected[log_n]:
+            raise AssertionError(f"GLV msm n=2^{log_n}: {got} != native "
+                                 f"{expected[log_n]}")
+        read_counts(8, ("scan_madd", "padd", "digit_hist"))
+        log(8, f"GLV msm n=2^{log_n} == native engine (affine, exact)")
+        dpx, dpy, dsl = interop.limbs_to_device(px, py, sl, dev)
+        times = {False: [], True: []}
+        for g in (False, True, True, False):
+            cfg = dataclasses.replace(base, glv=g)
+            times[g].append(cuda_ms(
+                lambda: tpu_msm_torch.msm_device(dpx, dpy, dsl, cfg)))
+        log(8, f"msm_device n=2^{log_n} {dataclasses.asdict(base)}: glv "
+            f"off {times[False]} ms, on {times[True]} ms (on / off "
+            f"{sum(times[True]) / sum(times[False]):.4f})")
+        glv_cfg = dataclasses.replace(base, glv=True)
+        split_ms = cuda_ms(lambda: pippenger._glv_split(
+            AffinePoint(dpx, dpy), dsl, glv_cfg))
+        log(8, f"GLV split (decompose_limbs and BETA·x) n=2^{log_n}: "
+            f"{split_ms:.3f} ms")
+
+
+def phase_tuning(dev, inputs, expected):
+    """select_config at 2^16, 2^18 and 2^20 on the card is the "cuda" row;
+    benchmark_gpu_msm_best(16) is positive; msm_best at 2^16 equals the
+    native engine."""
+    import tpu_msm_torch
+    from tpu_msm_torch.bindings import benchmarks
+    from tpu_msm_torch.utils import autotune
+
+    for log_n in (16, 18, 20):
+        row = autotune.lookup(1 << log_n, "cuda")
+        cfg = tpu_msm_torch.select_config(1 << log_n, dev)
+        if row is None or any(getattr(cfg, k) != v for k, v in row.items()):
+            raise AssertionError(f"select_config(2^{log_n}) = {cfg} is not "
+                                 f"the cuda row {row}")
+        log(9, f"select_config(2^{log_n}) on the card == cuda row {row}")
+    ms = benchmarks.benchmark_gpu_msm_best(16)
+    if not ms > 0:
+        raise AssertionError(f"benchmark_gpu_msm_best(16) = {ms}")
+    log(9, f"benchmark_gpu_msm_best(16): {ms:.3f} ms")
+    px, py, sl = inputs[16]
+    got = tpu_msm_torch.msm_best(sl, (px, py), device=dev)
+    if got != expected[16]:
+        raise AssertionError(f"msm_best n=2^16: {got} != native "
+                             f"{expected[16]}")
+    log(9, "msm_best n=2^16 == native engine (affine, exact)")
+
+
 EC = "tpu_msm_torch/csrc/ec_kernels.cu"
 PC = "tpu_msm/ops/pallas_curve.py"
 # name: (source, the TPU kernels it replaces, the path its launches count)
@@ -677,10 +942,14 @@ SOURCES = {
     "jac_madd": (EC, f"{PC}:367", "cli"),
     "jac_add": (EC, f"{PC}:385", "cli"),
     "scan_madd_rows": (EC, f"{PC}:565", "cli"),
+    "montmul_chain": ("tpu_msm_torch/csrc/montmul.cu",
+                      "benches/montmul_benchmark.py:100", "roofline"),
 }
 PATHS = {"main": "msm_best at 2^12 and 2^20",
          "per_window": "msm at 2^20, 16384 scan lanes, both segment starts",
-         "cli": "tpu_msm_torch.cli.profiler --check-kernels"}
+         "cli": "tpu_msm_torch.cli.profiler --check-kernels",
+         "roofline": "tpu_msm_torch.benches.montmul_benchmark at ilp 1 and "
+                     "4, then utils.profiling.roofline(20)"}
 
 
 def main() -> int:
@@ -716,7 +985,15 @@ def main() -> int:
     launches["main"], fused_ms = phase_e2e(dev, inputs, expected)
     launches["per_window"] = phase_window(dev, inputs, expected, fused_ms)
     launches["cli"] = phase_cli()
-    phase_profile(dev, inputs)
+    phase_montmul(dev, entries)
+    launches["roofline"] = phase_roofline(dev)
+    more = {log_n: bench_inputs(1 << log_n) for log_n in (16, 18)}
+    for log_n, (px, py, sl) in more.items():
+        expected[log_n] = native.msm(px, py, sl)
+    more[20] = inputs[20]
+    phase_glv(dev, more, expected)
+    phase_tuning(dev, more, expected)
+    phase_profile(dev, more)
 
     kernels = [{"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches[path][name],

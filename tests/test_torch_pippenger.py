@@ -31,7 +31,7 @@ from tpu_msm.utils.config import MsmConfig as JaxMsmConfig  # noqa: E402
 from tpu_msm_torch.bindings import native  # noqa: E402
 from tpu_msm_torch.models import bn254  # noqa: E402
 from tpu_msm_torch.ops import pippenger  # noqa: E402
-from tpu_msm_torch.utils import interop  # noqa: E402
+from tpu_msm_torch.utils import autotune, interop  # noqa: E402
 from tpu_msm_torch.utils.config import MsmConfig, select_config  # noqa: E402
 
 FR = bn254.FR
@@ -67,7 +67,7 @@ def small_dispatch(monkeypatch):
     """msm_best reaches the device pipeline at any size, with SMALL."""
     monkeypatch.setattr(tpu_msm_torch, "CPU_THRESHOLD", 0)
     monkeypatch.setattr(tpu_msm_torch, "select_config",
-                        lambda n: MsmConfig(**SMALL))
+                        lambda n, device=None: MsmConfig(**SMALL))
 
 
 def test_msm_matches_jax(jax_case):
@@ -181,10 +181,19 @@ def test_window_digits_match_oracle():
 
 
 def test_select_config_is_tuned_row():
-    assert select_config(1 << 20) == MsmConfig()
+    """On the card, the 2^20 row of the port's table (lanes clamped for
+    small n); on the CPU, which has no rows, the size heuristic."""
+    row = autotune.lookup(1 << 20, "cuda")
+    cfg = select_config(1 << 20, "cuda")
+    assert row is not None
+    assert (cfg.window_bits, cfg.scan_lanes, cfg.reduce_fanout,
+            cfg.signed_digits, cfg.glv) == (
+        row["window_bits"], row["scan_lanes"], row["reduce_fanout"],
+        row["signed_digits"], row["glv"])
+    assert select_config(1 << 20) == cfg  # None means the card
     assert dataclasses.astuple(MsmConfig())[:2] == (16, 4096)
-    assert select_config(256).scan_lanes == 128
-    assert select_config(5).scan_lanes == 8
+    assert select_config(256, "cpu").scan_lanes == 128
+    assert select_config(5, "cpu").scan_lanes == 8
 
 
 def test_mismatched_lengths_raise():
@@ -213,3 +222,14 @@ def test_cuda_request_without_card_raises():
         tpu_msm_torch.msm_best(sl, (px, py), device="cuda")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tpu_msm_torch.msm((px, py), sl, device="cuda")
+
+
+def test_msm_best_default_device_is_the_card(monkeypatch):
+    """device=None means "cuda": without a card it raises and never runs
+    on the CPU instead."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    px, py, sl = _inputs(50, 8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tpu_msm_torch.msm_best(sl, (px, py))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tpu_msm_torch.msm((px, py), sl)

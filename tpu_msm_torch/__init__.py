@@ -11,9 +11,10 @@ reference. Same entry points, same wire format, same results:
 Inputs are Python lists (int scalars, (x, y) int points with None for
 infinity) or the JAX package's (16, N) uint32 limb arrays: Montgomery-form
 affine points with (0, 0) as infinity, standard-form scalars.
-`device` names where the pipeline runs; None picks "cuda" when a card is
-present and the CPU otherwise. On CUDA tensors every kernel of the path runs
-on the card; on CPU tensors their plain PyTorch versions run.
+`device` names where the pipeline runs; None means "cuda", and raises as
+"cuda" does when there is no card (the CPU runs only when asked for). On
+CUDA tensors every kernel of the path runs on the card; on CPU tensors
+their plain PyTorch versions run.
 """
 
 from __future__ import annotations
@@ -43,11 +44,9 @@ CPU_THRESHOLD = 1 << 12
 
 
 def _device(device) -> torch.device:
-    """The device the pipeline runs on; asking for CUDA without a card
-    raises rather than running on the CPU."""
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
-    device = torch.device(device)
+    """The device the pipeline runs on: None means "cuda". Asking for CUDA
+    without a card raises rather than running on the CPU."""
+    device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device} requested but no CUDA device "
                            "is available")
@@ -83,7 +82,7 @@ def msm(points, scalars, cfg: MsmConfig | None = None, device=None) -> Affine:
     if n == 0:
         return None
     if cfg is None:
-        cfg = select_config(n)
+        cfg = select_config(n, dev)
     res = msm_device(*interop.limbs_to_device(px, py, slimbs, dev), cfg)
     [pt] = interop.proj_limbs_to_affine_points(
         *(interop.tensor_to_limbs(a) for a in res))

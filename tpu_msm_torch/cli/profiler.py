@@ -345,7 +345,7 @@ def main(argv=None):
     # Every mode but cpu (the native engine alone) runs on the card.
     device = _card() if mode != "cpu" else torch.device("cuda")
     n = 1 << args.log_instance_size
-    cfg = select_config(n)
+    cfg = select_config(n, device)
     log.info("generating/loading %d instance(s) of size 2^%d",
              args.num_instances, args.log_instance_size)
     instances = preprocess.get_or_create_msm_instances(

@@ -35,3 +35,5 @@ GY = 2
 R_MOD_P = R % P
 P_INV_NEG_16 = (-pow(P, -1, 1 << LIMB_BITS)) % (1 << LIMB_BITS)
 P_INV_NEG_32 = (-pow(P, -1, 1 << 32)) % (1 << 32)
+# -P^-1 mod 2^256: the one-shot REDC multiplier of field.mont_mul_const.
+P_INV_NEG = (-pow(P, -1, R)) % R

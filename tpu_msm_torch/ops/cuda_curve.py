@@ -17,14 +17,20 @@ There is no fallback from one to the other.
   jac_madd        jac_madd_kernel        madd_packed (:367)
   jac_add         jac_add_kernel         add_packed (:385)
   scan_madd_rows  scan_madd_rows_kernel  scan_madd_packed (:565)
+  montmul_chain   montmul_chain_kernel   benches/montmul_benchmark.py `run`
+                                         (:89-107, built by _build_kernel)
 
 The fused MSM path runs scan_madd, padd and fold_add; the per-window path
 runs pmadd (one launch per scan step), padd and fold_add. jac_madd, jac_add
 and scan_madd_rows run in the profiler's kernel check
 (`tpu_msm_torch.cli.profiler --check-kernels`), as their TPU kernels did.
+montmul_chain runs in the field core's microbench
+(`tpu_msm_torch.benches.montmul_benchmark`), whose rate the roofline
+(`utils/profiling.py`) takes.
 
 What bounds the kernels, and what their design does about it, is written at
-the top of `csrc/ec_kernels.cu`.
+the top of `csrc/ec_kernels.cu` and `csrc/montmul.cu` (the montmul kernel is
+in its own source).
 
 Counters: `<wrapper>.launches` counts kernel launches and
 `<plain>.calls` counts plain-version calls; callers may reset them to 0.
@@ -294,3 +300,61 @@ def scan_madd_rows(gx: torch.Tensor, gy: torch.Tensor):
 
 
 scan_madd_rows.launches = 0
+
+
+# --------------------------------------------------------------------------
+# montmul_chain: the chained Montgomery-multiply microbench (the field core's
+# rate, benches/montmul_benchmark.py).
+# --------------------------------------------------------------------------
+
+MONTMUL_MAX_ILP = 8
+
+
+def _check_montmul_args(chain: int, steps: int, ilp: int) -> None:
+    if chain < 0 or steps < 0:
+        raise ValueError("chain and steps must be >= 0")
+    if not 1 <= ilp <= MONTMUL_MAX_ILP:
+        raise ValueError(f"ilp must be in 1..{MONTMUL_MAX_ILP}, got {ilp}")
+
+
+def montmul_chain_plain(a, x, chain: int, steps: int, ilp: int = 1):
+    """a, x: (16, N) u16 rows, x < P and a < 2^256. Per lane, `steps`
+    times: start `ilp` chains from the limb rotations of the accumulator
+    (chain k holds limb (i + k) mod 16 at limb i), multiply each `chain`
+    times by x in Montgomery form (field.mont_mul), and XOR-fold them into
+    the accumulator (`benches/montmul_benchmark.py:64-74`). Returns the
+    (16, N) int32 accumulator; with ilp = 1 it is a·x^(chain·steps)·
+    2^(-256·chain·steps) mod P."""
+    montmul_chain_plain.calls += 1
+    _check_montmul_args(chain, steps, ilp)
+    acc, xx = a.to(_I64), x.to(_I64)
+    for _ in range(steps):
+        chains = [torch.roll(acc, -k, dims=0) for k in range(ilp)]
+        for _ in range(chain):
+            chains = [field.mont_mul(c, xx) for c in chains]
+        acc = chains[0]
+        for c in chains[1:]:
+            acc = acc ^ c
+    return acc.to(_I32)
+
+
+montmul_chain_plain.calls = 0
+
+
+def montmul_chain(a, x, chain: int, steps: int, ilp: int = 1):
+    """Kernel wrapper of montmul_chain_plain (same arguments and result)."""
+    if not _build.on_cuda(a, x):
+        return montmul_chain_plain(a, x, chain, steps, ilp)
+    _check_montmul_args(chain, steps, ilp)
+    if a.dim() != 2 or a.shape[0] != 16 or x.shape != a.shape \
+            or a.shape[1] < 1:
+        raise ValueError(f"montmul_chain operands must both be (16, N), "
+                         f"N >= 1, got {tuple(a.shape)} and {tuple(x.shape)}")
+    out = torch.empty_like(a)
+    _build.launch("tpu_msm_montmul_chain", a.device, a, x, out, a.shape[1],
+                  chain, steps, ilp)
+    montmul_chain.launches += 1
+    return out
+
+
+montmul_chain.launches = 0

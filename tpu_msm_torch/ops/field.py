@@ -70,6 +70,24 @@ def mul9(a):
     return add_mod(double_mod(double_mod(double_mod(a))), a)
 
 
+def cond_sub_p(a):
+    """a - P if a >= P else a, for canonical limbs of a < 2^256."""
+    d, borrow = u256.sub(a, u256.const(bn254.P, a))
+    return u256.select(borrow == 0, d, a)
+
+
+def mont_mul_const(a, c_int: int):
+    """a·c·2^-256 mod P for a (16, *batch) batch and an integer constant c
+    < P (the caller supplies its Montgomery form, e.g. glv.BETA_MONT);
+    canonical, in a's dtype. One-shot REDC by constant products
+    (`tpu_msm/ops/field.py:115-129`): t = a·c, m = t·(-P^-1) mod 2^256,
+    (t + m·P) / 2^256 < 2P, then one conditional subtract."""
+    t = u256.mul_const(a, c_int, 2 * LIMBS)
+    m = u256.mul_const(t[:LIMBS], bn254.P_INV_NEG, LIMBS)
+    s, _ = u256.add(t, u256.mul_const(m, bn254.P, 2 * LIMBS))
+    return cond_sub_p(s[LIMBS:])
+
+
 def mont_mul(a, b):
     """a·b·2^-256 mod P, canonical; returns a's dtype.
 

@@ -33,10 +33,15 @@ on the JAX CPU backend, and the fused ones projectively equal to it.
 the CPU), every fold through the fold_add kernel; everything else is plain
 torch, as the JAX package left it to XLA.
 
+With `cfg.glv` both routes first split every scalar by the GLV
+endomorphism (`_glv_split`, `pippenger.py:583-598` of the JAX package):
+2n points over half the windows, the halves' signs XORed into the signed
+digits' negation masks. The route is chosen after the split, on 2n points,
+as in the JAX package.
+
 Dropped from the JAX fused route: the `_FUSED_MAX_LANES // w` fanout clamp
 and the query padding to 4096. They change only the association of EC
-adds, so window sums stay projectively equal. Not ported yet: GLV and
-streaming.
+adds, so window sums stay projectively equal. Not ported yet: streaming.
 """
 
 from __future__ import annotations
@@ -45,7 +50,7 @@ import dataclasses
 
 import torch
 
-from tpu_msm_torch.ops import curve, field, hist
+from tpu_msm_torch.ops import curve, field, glv, hist
 from tpu_msm_torch.ops.cuda_curve import fold_add, padd, pmadd, scan_madd
 from tpu_msm_torch.ops.curve import AffinePoint, ProjPoint
 from tpu_msm_torch.utils.config import MsmConfig, select_config
@@ -408,31 +413,53 @@ def _pad_cols(a, pad: int, value):
     return torch.cat([a, a.new_full((*a.shape[:-1], pad), value)], dim=-1)
 
 
+def _glv_split(points: AffinePoint, scalar_limbs, cfg: MsmConfig):
+    """The GLV split (`pippenger.py:583-598`): 2n points (P_i, then
+    phi(P_i) = (BETA·x, y)), the 2n magnitudes |k1|, |k2| below 2^127, their
+    (2n,) negation mask, and cfg for 127-bit scalars without glv."""
+    if not cfg.signed_digits or cfg.scalar_bits != 254:
+        raise ValueError("glv requires signed_digits and scalar_bits=254")
+    m1, s1, m2, s2 = glv.decompose_limbs(scalar_limbs)
+    phix = field.mont_mul_const(points.x, glv.BETA_MONT)
+    points = AffinePoint(torch.cat([points.x, phix], dim=1),
+                         torch.cat([points.y, points.y], dim=1))
+    cfg = dataclasses.replace(cfg, glv=False, scalar_bits=glv.GLV_BITS)
+    return points, torch.cat([m1, m2], dim=1), torch.cat([s1, s2]), cfg
+
+
 def _digits(points: AffinePoint, scalar_limbs, cfg: MsmConfig):
-    """Set-up both routes share: the scan lanes for n, the (W, n_pad)
-    digits with the sentinel m+1 on the padding (it sorts last and its bin
-    is dropped), the negation masks and -y (signed digits) or None.
-    Returns (cfg with the lanes, n, digits, negm, y_neg)."""
+    """Set-up both routes share: the GLV split when cfg.glv, the scan
+    lanes for n, the (W, n_pad) digits with the sentinel m+1 on the padding
+    (it sorts last and its bin is dropped), the negation masks and -y
+    (signed digits) or None. Returns (points, cfg with the lanes, n,
+    digits, negm, y_neg); n and the points are the split's 2n with glv."""
     n = points.x.shape[1]
     if scalar_limbs.shape[1] != n:
         raise ValueError(f"points ({n}) and scalars ({scalar_limbs.shape[1]}) "
                          "differ in count")
+    glv_neg = None
+    if cfg.glv:
+        points, scalar_limbs, glv_neg, cfg = _glv_split(points, scalar_limbs,
+                                                        cfg)
+        n = 2 * n
     lanes = _scan_lanes(n, cfg)
     pad = lanes * -(-n // lanes) - n
     cfg = dataclasses.replace(cfg, scan_lanes=lanes)
     if cfg.signed_digits:
         digits, negm = signed_window_digits(scalar_limbs, cfg)
+        if glv_neg is not None:  # a negative GLV half negates every digit
+            negm = negm ^ glv_neg[None, :]
         negm = _pad_cols(negm, pad, False)
         y_neg = field.neg_mod(points.y)  # for negative digits; -0 stays 0
     else:
         digits, negm, y_neg = window_digits(scalar_limbs, cfg), None, None
-    return cfg, n, _pad_cols(digits, pad, cfg.buckets_per_window() + 1), \
-        negm, y_neg
+    return points, cfg, n, _pad_cols(digits, pad, cfg.buckets_per_window()
+                                     + 1), negm, y_neg
 
 
 def _fused_sums(points: AffinePoint, scalar_limbs, cfg: MsmConfig) -> ProjPoint:
     """Window sums (W, 16, 1) by the fused route."""
-    cfg, n, digits, negm, y_neg = _digits(points, scalar_limbs, cfg)
+    points, cfg, n, digits, negm, y_neg = _digits(points, scalar_limbs, cfg)
     pad = digits.shape[1] - n
     # The padding positions carry the (0, 0) affine infinity: the scan
     # skips it.
@@ -449,7 +476,7 @@ def _per_window_sums(points: AffinePoint, scalar_limbs,
                      cfg: MsmConfig) -> ProjPoint:
     """Window sums (W, 16, 1) by the per-window route, one `_msm_window`
     each."""
-    cfg, n, digits, negm, y_neg = _digits(points, scalar_limbs, cfg)
+    points, cfg, n, digits, negm, y_neg = _digits(points, scalar_limbs, cfg)
     inf = field.zero((1,), points.x.device)
     px = torch.cat([points.x, inf], dim=1)
     py = (torch.cat([points.y, inf], dim=1),
@@ -463,11 +490,13 @@ def _per_window_sums(points: AffinePoint, scalar_limbs,
 def window_sums(points: AffinePoint, scalar_limbs: torch.Tensor,
                 cfg: MsmConfig) -> ProjPoint:
     """Per-window sums sum_b b·bucket_b for every window, (W, 16, 1), by the
-    route the scan lanes select (module docstring).
+    route the scan lanes select for the points after the GLV split (module
+    docstring); with cfg.glv, W is that of 127-bit scalars.
 
     points: (16, N) int32 Montgomery affine coordinates; scalar_limbs:
     (16, N) int32 standard-form scalars below 2^cfg.scalar_bits."""
-    if fused_route(_scan_lanes(points.x.shape[1], cfg)):
+    n = points.x.shape[1] * (2 if cfg.glv else 1)
+    if fused_route(_scan_lanes(n, cfg)):
         return _fused_sums(points, scalar_limbs, cfg)
     return _per_window_sums(points, scalar_limbs, cfg)
 
@@ -487,5 +516,5 @@ def msm_projective(points: AffinePoint, scalar_limbs: torch.Tensor,
                    cfg: MsmConfig | None = None) -> ProjPoint:
     """sum_i scalars[i] * points[i] as a (16, 1) projective point."""
     if cfg is None:
-        cfg = select_config(points.x.shape[1])
+        cfg = select_config(points.x.shape[1], points.x.device)
     return horner_fold(window_sums(points, scalar_limbs, cfg), cfg.window_bits)

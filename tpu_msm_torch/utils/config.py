@@ -4,14 +4,17 @@
 The JAX package's knobs that only chose a TPU schedule are gone:
 `field_impl` (the CUDA kernels have one field core), `scan_step_batch`,
 `window_batch`, `backend` (the tensor's device decides) and the
-`segment_starts` options other than the two histograms. GLV and the autotune
-table are not ported yet, so `select_config` returns the tuned 2^20 row of
-`tpu_msm/utils/tuned_configs.json` for every size.
+`segment_starts` options other than the two histograms. `select_config`
+reads the port's own autotune table (`utils/autotune.py`, rows measured on
+the H100 and keyed by "cuda") and falls back to the JAX package's size
+heuristic.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, replace
+from dataclasses import dataclass
+
+import torch
 
 
 @dataclass(frozen=True)
@@ -36,6 +39,11 @@ class MsmConfig:
     # ones, as the JAX pipeline feeds its two histogram kernels. The
     # per-window path counts the sorted digits either way.
     segment_starts: str = "hist"
+    # GLV split (ops/glv.py): each scalar becomes two signed halves below
+    # 2^127 and the points are doubled with phi(P) = (BETA·x, y), so the
+    # pipeline runs 2n points over half the windows. Requires signed_digits
+    # and scalar_bits = 254 (window_sums raises otherwise).
+    glv: bool = False
 
     def __post_init__(self):
         if self.window_bits not in (8, 16):
@@ -58,12 +66,34 @@ class MsmConfig:
         return (1 << self.window_bits) - 1
 
 
-def select_config(n: int) -> MsmConfig:
-    """The tuned row for every n, with the scan lanes clamped so that small
-    inputs are not spread thinner than two points per lane
-    (`tpu_msm/utils/config.py:171-173`)."""
-    cfg = MsmConfig()
-    lanes = cfg.scan_lanes
+def _clamp_lanes(lanes: int, n: int) -> int:
+    """Halve the scan lanes until inputs are not spread thinner than two
+    points per lane (`tpu_msm/utils/config.py:171-173`)."""
     while lanes > 8 and lanes * 2 > n:
         lanes //= 2
-    return replace(cfg, scan_lanes=lanes)
+    return lanes
+
+
+def select_config(n: int, device=None) -> MsmConfig:
+    """The configuration for an MSM of n points on `device` (None means
+    "cuda"): the nearest measured row of the autotune table for the
+    device's type (`autotune.lookup`), else the JAX package's heuristic
+    (`tpu_msm/utils/config.py:184-202`, without `field_impl`): c = 8
+    unsigned below 2^17 points, c = 16 signed from there, 8192 lanes,
+    fanout 4096. There are no "cpu" rows, so the CPU gets the heuristic."""
+    from tpu_msm_torch.utils import autotune
+
+    platform = torch.device("cuda" if device is None else device).type
+    tuned = autotune.lookup(n, platform)
+    if tuned is not None:
+        return MsmConfig(
+            window_bits=tuned["window_bits"],
+            scan_lanes=_clamp_lanes(tuned["scan_lanes"], n),
+            reduce_fanout=tuned["reduce_fanout"],
+            signed_digits=tuned["signed_digits"],
+            segment_starts=tuned.get("segment_starts", "hist"),
+            glv=tuned.get("glv", False))
+    big = n >= 1 << 17
+    return MsmConfig(window_bits=16 if big else 8,
+                     scan_lanes=_clamp_lanes(8192, n), reduce_fanout=4096,
+                     signed_digits=big)
