@@ -10,11 +10,11 @@ C++ engine's result exactly:
 
   * the main path: `tpu_msm_torch.msm_best` at n = 2^12 and n = 2^20 on
     bench-style inputs, with the tuned row `select_config` reads from the
-    autotune table (the fused route: scan_madd, padd, fold_add,
-    digit_hist);
+    autotune table (the fused route: scan_madd over groups of windows,
+    padd, fold_add, digit_hist, window_tail, horner);
   * the per-window path: `tpu_msm_torch.msm` at n = 2^20 with 16384 scan
     lanes, once with each segment-start option (pmadd, padd, fold_add,
-    digit_hist);
+    digit_hist, window_tail, horner);
   * the profiler CLI: `--check-kernels` (every kernel, among them
     jac_madd, jac_add and scan_madd_rows) and `20 1 check 1`, each in a
     subprocess;
@@ -35,7 +35,13 @@ and on each route, and with and without GLV at 2^18 and 2^20
 per kernel. Beside each kernel's time stand its bound
 (the larger of its 32-bit integer multiplies over the card's rate and its
 bytes over the memory rate, counted from this run's inputs) and, for the
-histogram, `torch.bincount`'s time.
+histogram, `torch.bincount`'s time. The serial tail (window_tail, horner)
+is bound by latency instead: its serial adds x 2 dependent products x the
+least time one product can take, the card's pipe floor (the product's
+multiply instructions in the built SASS at 2 clocks each); beside it
+the same chain at the latency of one product of the port's own field core
+(the montmul_chain kernel on one lane), and the chain of width-16 and
+width-1 `padd` launches it replaced, timed in the same run.
 
 The kernel counters are set to 0 just before each path and read just after.
 One line per phase on stdout; then the kernels' JSON line, the card's
@@ -49,6 +55,7 @@ from __future__ import annotations
 
 import functools
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -70,23 +77,34 @@ def log(phase, msg):
     print(f"[{phase}] {msg}", flush=True)
 
 
-def cuda_ms(fn, runs=3, inner=1):
-    """Median over `runs` of the mean time of `inner` back-to-back calls,
-    in ms, by CUDA events (after one warm-up call)."""
+# The least span of one timing, in ms: a call that takes less is repeated
+# back to back, so that the host's share of a call (its Python and launch,
+# before the first kernel) does not set the mean of a short kernel.
+TIMING_SPAN_MS = 10.0
+
+
+def _events_ms(fn, inner):
+    """The mean time of `inner` back-to-back calls, in ms, by CUDA events."""
     import torch
 
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(inner):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / inner
+
+
+def cuda_ms(fn, runs=3, inner=None):
+    """Median over `runs` of the mean time of `inner` back-to-back calls,
+    in ms, by CUDA events (after one warm-up call). inner=None: as many
+    calls as fill TIMING_SPAN_MS, judged by one timed call, at most 50."""
     fn()
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(inner):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / inner)
-    return statistics.median(times)
+    if inner is None:
+        inner = min(50, math.ceil(TIMING_SPAN_MS / _events_ms(fn, 1)))
+    return statistics.median(_events_ms(fn, inner) for _ in range(runs))
 
 
 def max_abs_err(got, want):
@@ -266,7 +284,7 @@ def timer(phase):
     events, the bound of `work` (see bound) beside them, and the library
     call's time where one PyTorch call computes the same function."""
 
-    def timed(name, shape, fn, plain, work, plain_shape=None, inner=1,
+    def timed(name, shape, fn, plain, work, plain_shape=None, inner=None,
               library=None):
         ms = cuda_ms(fn, inner=inner)
         pms = cuda_ms(plain, inner=inner)
@@ -291,7 +309,8 @@ def timer(phase):
 
 KERNEL_FUNCTIONS = ("scan_madd_rows_kernel", "scan_madd_kernel",
                     "jac_madd_kernel", "jac_add_kernel", "pmadd_kernel",
-                    "padd_kernel", "fold_add_kernel", "digit_hist_kernel",
+                    "padd_kernel", "window_tail_kernel", "horner_kernel",
+                    "fold_add_kernel", "digit_hist_kernel",
                     "montmul_chain_kernel")
 
 
@@ -313,12 +332,13 @@ def phase_build():
 
 def main_shapes(dev):
     """The shapes the main path gives the kernels at n = 2^20: the tuned
-    row's scan lanes and steps, windows, buckets (m, padded to m_pad) and
-    fold fanout, for the 2n points of 127-bit halves when it splits by
-    GLV."""
+    row's scan lanes and steps, windows, the windows a scan launch takes
+    (g), buckets (m, padded to m_pad), fold fanout, window bits and digit
+    sign, for the 2n points of 127-bit halves when it splits by GLV."""
     import dataclasses
 
     from tpu_msm_torch import select_config
+    from tpu_msm_torch.ops import pippenger
 
     cfg = select_config(1 << 20, dev)
     n = 1 << 20
@@ -326,9 +346,11 @@ def main_shapes(dev):
         n, cfg = 2 * n, dataclasses.replace(cfg, glv=False, scalar_bits=127)
     m = cfg.buckets_per_window()
     return {"n": n, "lanes": cfg.scan_lanes, "steps": n // cfg.scan_lanes,
-            "w": cfg.num_windows(), "m": m,
-            "m_pad": 1 << (m - 1).bit_length(),
-            "fanout": 1 << (cfg.reduce_fanout.bit_length() - 1)}
+            "w": cfg.num_windows(),
+            "g": pippenger.window_group_size(cfg.num_windows(), n, dev),
+            "m": m, "m_pad": 1 << (m - 1).bit_length(),
+            "fanout": 1 << (cfg.reduce_fanout.bit_length() - 1),
+            "c": cfg.window_bits, "signed": cfg.signed_digits}
 
 
 def phase_kernels(dev):
@@ -368,6 +390,11 @@ def phase_kernels(dev):
     gy[:, 5, 100:110] = 0
     check("scan_madd", [8, 8, 4096], cc.scan_madd(gx, gy),
           cc.scan_madd_plain(gx, gy))
+    # The same over three windows in one launch, each lane-rolled apart.
+    gx3, gy3 = (torch.stack([a.roll(37 * i, dims=2) for i in range(3)])
+                for a in (gx, gy))
+    check("scan_madd", [3, 8, 8, 4096], cc.scan_madd(gx3, gy3),
+          cc.scan_madd_plain(gx3, gy3))
 
     # ---- the main path's shapes (the tuned row at 2^20): checked, then
     # kernel and plain version timed ----
@@ -390,21 +417,42 @@ def phase_kernels(dev):
         {"ops": n, "bytes": 4 * (n + nb)},
         library=lambda: torch.bincount(digits, minlength=nb)))
 
-    # scan at (8, steps, lanes); the plain version is timed at 8 of the
-    # steps (one full plain scan takes seconds).
+    # The scan: one window at (8, steps, lanes), checked in full, then the
+    # main path's group of g windows at (g, 8, steps, lanes) in one launch,
+    # checked on its first 8 steps (a prefix scan's first steps depend on
+    # nothing after them; one full plain scan takes seconds a window). The
+    # plain version is timed at one window's first 8 steps.
+    g = sh["g"]
     scan_x = torch.stack([pack_u16_rows(tile(a_aff[0].roll(k, dims=1), lanes))
                           for k in range(steps)], dim=1).contiguous()
     scan_y = torch.stack([pack_u16_rows(tile(a_aff[1].roll(k, dims=1), lanes))
                           for k in range(steps)], dim=1).contiguous()
     check("scan_madd", [8, steps, lanes], cc.scan_madd(scan_x, scan_y),
           cc.scan_madd_plain(scan_x, scan_y))
-    entries["scan_madd"].update(timed(
-        "scan_madd", [8, steps, lanes], lambda: cc.scan_madd(scan_x, scan_y),
-        lambda: cc.scan_madd_plain(scan_x[:, :8].contiguous(),
-                                   scan_y[:, :8].contiguous()),
-        ec_work(11 * finite(scan_x, scan_y), steps * lanes, 16 + 48),
-        plain_shape=[8, 8, lanes]))
+    one = timed("scan_madd", [8, steps, lanes],
+                lambda: cc.scan_madd(scan_x, scan_y),
+                lambda: cc.scan_madd_plain(scan_x[:, :8].contiguous(),
+                                           scan_y[:, :8].contiguous()),
+                ec_work(11 * finite(scan_x, scan_y), steps * lanes, 16 + 48),
+                plain_shape=[8, 8, lanes])
+    group_x, group_y = (torch.stack([a.roll(i, dims=2) for i in range(g)])
+                        for a in (scan_x, scan_y))
     del scan_x, scan_y
+    out = cc.scan_madd(group_x, group_y)
+    check("scan_madd", [g, 8, steps, lanes, "first 8 steps"],
+          out[:, :, :8].contiguous(),
+          cc.scan_madd_plain(group_x[:, :, :8].contiguous(),
+                             group_y[:, :, :8].contiguous()))
+    del out
+    entries["scan_madd"].update(timed(
+        "scan_madd", [g, 8, steps, lanes],
+        lambda: cc.scan_madd(group_x, group_y),
+        lambda: cc.scan_madd_plain(group_x[0, :, :8].contiguous(),
+                                   group_y[0, :, :8].contiguous()),
+        ec_work(11 * finite(group_x.transpose(0, 1), group_y.transpose(0, 1)),
+                g * steps * lanes, 16 + 48),
+        plain_shape=[8, 8, lanes]), other_shapes=[one])
+    del group_x, group_y
 
     # Projective operands for fold_add and padd, tiled to each width. Lane 0
     # (an infinity) is dropped so that the narrow widths add real points.
@@ -427,25 +475,139 @@ def phase_kernels(dev):
     del fold_main, fold_cut
 
     # padd at every width of the main path: W·(m+1) query adds, the
-    # W·lanes lane-carry scan, the W·fanout rolled tree, M·X(n) at W, Horner
-    # at 1 (each lane added to its neighbour; at width 1 that is a
-    # doubling).
-    def padd_at(width, inner):
+    # W·lanes lane-carry scan, the W·fanout rolled tree (each lane added to
+    # its neighbour); and at W and 1, the widths of the chain that
+    # window_tail and horner replace (at width 1 the add is a doubling).
+    def padd_at(width, timed_too):
         ops = [tile(c, width) for c in big]
         ops += [o.roll(1, dims=1).contiguous() for o in ops]
         check("padd", [16, width], cc.padd(*ops), cc.padd_plain(*ops))
-        if inner is None:
+        if not timed_too:
             return None
         return timed("padd", [16, width], lambda: cc.padd(*ops),
                      lambda: cc.padd_plain(*ops),
-                     ec_work(12 * width, width, 96 + 48), inner=inner)
+                     ec_work(12 * width, width, 96 + 48))
 
-    # Widths W and 1 are timed per call over 100 calls: launch-bound.
-    first, *others = (r for r in (padd_at(width, k) for width, k in (
-        (w * (m + 1), 1), (w * lanes, 1), (w * sh["fanout"], None),
-        (w, 100), (1, None))) if r is not None)
+    first, *others = (r for r in (padd_at(width, t) for width, t in (
+        (w * (m + 1), True), (w * lanes, True), (w * sh["fanout"], False),
+        (w, False), (1, False))) if r is not None)
     entries["padd"].update(first, other_shapes=others)
+    phase_tail(dev, entries, sh, big)
     return entries
+
+
+def product_latency_ms(dev):
+    """The latency of one Montgomery product with the port's field core:
+    the montmul_chain kernel on one lane (chain 64, steps 8, ilp 1, every
+    product depending on the one before), its time over the 512 products."""
+    from tpu_msm_torch.benches import montmul_benchmark as mb
+    from tpu_msm_torch.ops import cuda_curve as cc
+
+    x = mb.inputs(1, dev)
+    return cuda_ms(lambda: cc.montmul_chain(x, x, 64, 8, 1)) / (64 * 8)
+
+
+def product_pipe_floor_ms():
+    """A floor on one product's latency that the card sets, whatever the
+    carry chains cost: the multiply instructions of one product in the
+    built montmul_chain kernel's SASS (IMAD, IMAD.WIDE*, IMAD.HI*, IMUL*;
+    not the carry adds and moves that also run as IMAD.X and IMAD.MOV),
+    each a warp instruction that holds one scheduler's multiply pipe
+    32 / (IMAD_PER_CLOCK_PER_SM / 4) = 2 clocks, at the SM clock's
+    maximum. Returns (ms, instructions)."""
+    from tpu_msm_torch.benches import montmul_benchmark as mb
+    from tpu_msm_torch.utils import profiling
+
+    muls = sum(k for op, k in mb.sass_counts()["per_product"].items()
+               if op == "IMAD" or op.startswith(("IMAD.WIDE", "IMAD.HI",
+                                                 "IMUL")))
+    clocks = muls * 32 / (profiling.IMAD_PER_CLOCK_PER_SM / 4)
+    return clocks / profiling.sm_clock_hz() * 1e3, muls
+
+
+def phase_tail(dev, entries, sh, big):
+    """window_tail and horner against their plain versions (bit-identical)
+    at the main path's W windows and c, signed and unsigned, with infinite
+    inputs; then timed at the main path's digit sign beside the chain of
+    `padd` launches they replace and their latency bound."""
+    import torch
+
+    from tpu_msm_torch.ops import cuda_curve as cc
+
+    check = checker(entries, 2)
+    timed = timer(2)
+    w, c = sh["w"], sh["c"]
+    # X(n) and sum X(s_b): W seeded projective points; X(n) infinite at
+    # window 1, sum X(s_b) at window 2 (the columns of `big` are finite).
+    x_n = [tile(a, w) for a in big]
+    sums = [tile(a.roll(w, dims=1), w) for a in big]
+    x_n[0][:, 1], x_n[2][:, 1] = 0, 0
+    sums[0][:, 2], sums[2][:, 2] = 0, 0
+    for signed in (True, False):
+        check("window_tail", [16, w, f"c {c}", "signed" if signed else
+                              "unsigned"],
+              cc.window_tail(*x_n, *sums, c, signed),
+              cc.window_tail_plain(*x_n, *sums, c, signed))
+    # (W, 16, 1) window sums, window 3 infinite.
+    wsums = [tile(a.roll(2 * w, dims=1), w).t().reshape(w, 16, 1).contiguous()
+             for a in big]
+    wsums[0][3], wsums[2][3] = 0, 0
+    check("horner", [w, 16, 1, f"c {c}"], cc.horner(*wsums, c),
+          cc.horner_plain(*wsums, c))
+
+    signed = sh["signed"]
+    lat = product_latency_ms(dev)
+    floor, muls = product_pipe_floor_ms()
+    tail_adds = (c - 1) * (1 if signed else 2) + 1
+    horner_adds = (w - 1) * (c + 1)
+    log(2, f"one Montgomery product's latency with the port's field core "
+        f"(montmul_chain, one lane, chain 64, steps 8): {lat * 1e3:.4f} us; "
+        f"the card's pipe floor for it "
+        f"({muls} multiply instructions at 2 clocks): "
+        f"{floor * 1e3:.4f} us; serial adds: window_tail {tail_adds}, "
+        f"horner {horner_adds}")
+    old_tail = lambda: cc.window_tail_by_adds(  # noqa: E731
+        cc.padd, *x_n, *sums, c, signed)
+    old_horner = lambda: cc.horner_by_adds(cc.padd, *wsums, c)  # noqa: E731
+    # Work: window_tail reads two (16, W) points and writes one, W chains;
+    # horner reads W window sums and writes one, one chain.
+    for name, fn, plain, adds, work, old in (
+            ("window_tail", lambda: cc.window_tail(*x_n, *sums, c, signed),
+             lambda: cc.window_tail_plain(*x_n, *sums, c, signed),
+             tail_adds, ec_work(12 * tail_adds * w, w, 96 + 48), old_tail),
+            ("horner", lambda: cc.horner(*wsums, c),
+             lambda: cc.horner_plain(*wsums, c), horner_adds,
+             ec_work(12 * horner_adds, w + 1, 48), old_horner)):
+        rec = timed(name, [16, w, f"c {c}", "signed" if signed else
+                           "unsigned"], fn, plain, work)
+        latency = adds * 2 * lat
+        pipe = adds * 2 * floor
+        old_ms = cuda_ms(old)
+        # bound_ms: the card's floor (two dependent products an add at the
+        # pipe floor, or the throughput bound); latency_bound_ms: the same
+        # chain at the port's own product latency, which moves with the
+        # field core.
+        rec.update(throughput_bound_ms=rec["bound_ms"],
+                   pipe_floor_ms=pipe, latency_bound_ms=latency,
+                   bound_ms=max(pipe, rec["bound_ms"]),
+                   bound_by="operations", bound_kind="serial latency",
+                   serial_adds=adds, old_chain_ms=old_ms,
+                   old_chain_launches=adds)
+        log(2, f"{name}: {rec['ms']:.4f} ms in one launch; latency bound "
+            f"with the port's core {latency:.4f} ms ({adds} adds x 2 "
+            f"products x {lat * 1e3:.4f} us), the card's pipe floor "
+            f"{pipe:.4f} ms; the chain of {adds} padd launches it replaces "
+            f"{old_ms:.4f} ms")
+        entries[name].update(rec)
+    both = cuda_ms(lambda: (cc.window_tail(*x_n, *sums, c, signed),
+                            cc.horner(*wsums, c)))
+    both_old = cuda_ms(lambda: (old_tail(), old_horner()))
+    adds = tail_adds + horner_adds
+    log(2, f"the serial tail (window_tail + horner): {both:.4f} ms in 2 "
+        f"launches against {both_old:.4f} ms in {adds} padd launches; "
+        f"latency bound with the port's core {adds * 2 * lat:.4f} ms, the "
+        f"card's pipe floor {adds * 2 * floor:.4f} ms")
+    torch.cuda.synchronize()
 
 
 def bench_inputs(n):
@@ -474,14 +636,15 @@ def counters():
     from tpu_msm_torch.ops import hist
 
     kernels = {"scan_madd": cc.scan_madd, "padd": cc.padd,
+               "window_tail": cc.window_tail, "horner": cc.horner,
                "fold_add": cc.fold_add, "digit_hist": hist.digit_hist,
                "pmadd": cc.pmadd, "jac_madd": cc.jac_madd,
                "jac_add": cc.jac_add, "scan_madd_rows": cc.scan_madd_rows,
                "montmul_chain": cc.montmul_chain}
-    plains = [cc.scan_madd_plain, cc.padd_plain, cc.fold_add_plain,
-              hist.digit_hist_plain, cc.pmadd_plain, cc.jac_madd_plain,
-              cc.jac_add_plain, cc.scan_madd_rows_plain,
-              cc.montmul_chain_plain]
+    plains = [cc.scan_madd_plain, cc.padd_plain, cc.window_tail_plain,
+              cc.horner_plain, cc.fold_add_plain, hist.digit_hist_plain,
+              cc.pmadd_plain, cc.jac_madd_plain, cc.jac_add_plain,
+              cc.scan_madd_rows_plain, cc.montmul_chain_plain]
     return kernels, plains
 
 
@@ -491,6 +654,10 @@ def reset_counts():
         fn.launches = 0
     for fn in plains:
         fn.calls = 0
+
+
+MAIN_KERNELS = ("scan_madd", "padd", "fold_add", "digit_hist", "window_tail",
+                "horner")
 
 
 def read_counts(phase, path_kernels):
@@ -536,7 +703,7 @@ def phase_e2e(dev, inputs, expected):
     med = statistics.median(times)
     log(3, f"msm_best n=2^20: median {med:.4f} s of {[round(t, 4) for t in times]}"
         f" -> {(1 << 20) / med:.1f} points/s")
-    launches = read_counts(3, ("scan_madd", "padd", "fold_add", "digit_hist"))
+    launches = read_counts(3, MAIN_KERNELS)
 
     # The device pipeline alone on device-resident inputs (no host-side
     # coercion, transfer or affine conversion), as bench.py times it.
@@ -547,13 +714,31 @@ def phase_e2e(dev, inputs, expected):
     dev_ms = cuda_ms(lambda: tpu_msm_torch.msm_device(dpx, dpy, dsl, cfg))
     log(3, f"msm_device n=2^20 on device-resident inputs: {dev_ms:.3f} ms "
         f"-> {(1 << 20) / dev_ms * 1e3:.1f} points/s")
+    # One call's launches and peak memory: ceil(W / G) scan launches, the
+    # wide padd calls (lane-carry scan, query adds, rolled tree) and one
+    # launch of each tail kernel.
+    sh = main_shapes(dev)
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
+    reset_counts()
     tpu_msm_torch.msm_device(dpx, dpy, dsl, cfg)
     torch.cuda.synchronize()
-    log(3, f"msm_device n=2^20 peak device memory above its inputs: "
-        f"{(torch.cuda.max_memory_allocated() - base) / 2**20:.1f} MiB")
+    peak = torch.cuda.max_memory_allocated()
+    one = read_counts(3, MAIN_KERNELS)
+    want = {"scan_madd": -(-sh["w"] // sh["g"]), "window_tail": 1,
+            "horner": 1,
+            "padd": ((sh["lanes"] - 1).bit_length() + 1
+                     + (min(sh["m_pad"], sh["fanout"]) - 1).bit_length())}
+    if any(one[k] != v for k, v in want.items()):
+        raise AssertionError(f"launches of one msm_device call at 2^20: "
+                             f"{one}, expected {want}")
+    log(3, f"msm_device n=2^20: G = {sh['g']} of {sh['w']} windows a scan "
+        f"launch; launches {json.dumps(one)} (scan {one['scan_madd']}, padd "
+        f"family {one['padd']} + {one['window_tail'] + one['horner']})")
+    log(3, f"msm_device n=2^20 peak device memory: max_memory_allocated "
+        f"{peak / 2**20:.1f} MiB, {(peak - base) / 2**20:.1f} MiB above its "
+        f"inputs")
     return launches, dev_ms
 
 
@@ -708,14 +893,16 @@ def phase_window(dev, inputs, expected, fused_ms):
                                  f": {got} != native {expected[20]}")
         log(4, f"per-window msm n=2^20 segment_starts={cfg.segment_starts} "
             f"== native engine (affine, exact), {dt:.4f} s")
-    launches = read_counts(4, ("pmadd", "padd", "fold_add", "digit_hist"))
+    launches = read_counts(4, ("pmadd", "padd", "fold_add", "digit_hist",
+                               "window_tail", "horner"))
     if launches["scan_madd"]:
         raise AssertionError("the per-window path ran the fused scan")
 
     dpx, dpy, dsl = interop.limbs_to_device(px, py, sl, dev)
     pw_ms = cuda_ms(lambda: tpu_msm_torch.msm_device(dpx, dpy, dsl, cfgs[0]))
     log(4, f"msm_device n=2^20 per-window path (16384 lanes): {pw_ms:.3f} ms, "
-        f"fused path (4096 lanes): {fused_ms:.3f} ms ({pw_ms / fused_ms:.2f}x)")
+        f"main path (the tuned row): {fused_ms:.3f} ms "
+        f"({pw_ms / fused_ms:.2f}x)")
 
     # The fused route at the same 16384 lanes, which the route rule does
     # not take: what the rule costs on this card.
@@ -884,7 +1071,8 @@ def phase_glv(dev, inputs, expected):
         if got != expected[log_n]:
             raise AssertionError(f"GLV msm n=2^{log_n}: {got} != native "
                                  f"{expected[log_n]}")
-        read_counts(8, ("scan_madd", "padd", "digit_hist"))
+        read_counts(8, ("scan_madd", "padd", "digit_hist", "window_tail",
+                        "horner"))
         log(8, f"GLV msm n=2^{log_n} == native engine (affine, exact)")
         dpx, dpy, dsl = interop.limbs_to_device(px, py, sl, dev)
         times = {False: [], True: []}
@@ -935,6 +1123,8 @@ PC = "tpu_msm/ops/pallas_curve.py"
 SOURCES = {
     "scan_madd": (EC, f"{PC}:799", "main"),
     "padd": (EC, f"{PC}:1009", "main"),
+    "window_tail": (EC, f"{PC}:1009", "main"),
+    "horner": (EC, f"{PC}:1009", "main"),
     "fold_add": (EC, f"{PC}:953", "main"),
     "digit_hist": ("tpu_msm_torch/csrc/hist.cu",
                    "tpu_msm/ops/hist.py:171, tpu_msm/ops/hist.py:107", "main"),

@@ -33,9 +33,11 @@ def tally(monkeypatch):
     def three(*ops):
         return tuple(torch.zeros_like(ops[0]) for _ in range(3))
 
+    # The scan takes (8, steps, lanes) or (G, 8, steps, lanes).
     monkeypatch.setattr(cuda_curve, "scan_madd_plain", plain(
-        lambda gx, gy: 11 * gx.shape[1] * gx.shape[2],
-        lambda gx, gy: torch.zeros((48,) + gx.shape[1:], dtype=torch.int32)))
+        lambda gx, gy: 11 * gx.numel() // 8,
+        lambda gx, gy: torch.zeros(gx.shape[:-3] + (48,) + gx.shape[-2:],
+                                   dtype=torch.int32)))
     monkeypatch.setattr(cuda_curve, "pmadd_plain", plain(
         lambda *o: 11 * o[0].shape[1], three))
     monkeypatch.setattr(cuda_curve, "padd_plain", plain(

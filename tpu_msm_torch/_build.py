@@ -100,8 +100,10 @@ def load() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(LIB_PATH))
             vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
             signatures = {
-                "tpu_msm_scan_madd": [vp, vp, vp, i32, i32, vp],
+                "tpu_msm_scan_madd": [vp, vp, vp, i32, i32, i32, vp],
                 "tpu_msm_padd": [vp] * 9 + [i64, vp],
+                "tpu_msm_window_tail": [vp] * 9 + [i32, i32, i32, vp],
+                "tpu_msm_horner": [vp] * 6 + [i32, i32, vp],
                 "tpu_msm_fold_add": [vp] * 6 + [i32, i32, vp],
                 "tpu_msm_digit_hist": [vp, i64, vp, i64, vp],
                 "tpu_msm_pmadd": [vp] * 8 + [i64, vp],

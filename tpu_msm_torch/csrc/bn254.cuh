@@ -144,6 +144,16 @@ __device__ __forceinline__ Fp fp_mont_mul(const Fp& a, const Fp& b) {
   return fp_cond_sub_p(r);
 }
 
+// fp_mont_mul out of line: one copy of its code in the kernel however many
+// products call it. A step of eleven inlined products (the scan's mixed add)
+// outgrows the instruction caches; called, it runs faster on the H100
+// (PERF.md §6). proj_madd, and so every mixed-add kernel, calls it. The
+// operands pass by value, in registers: by reference they would go through
+// a stack frame in local memory.
+static __device__ __noinline__ Fp fp_mont_mul_outlined(Fp a, Fp b) {
+  return fp_mont_mul(a, b);
+}
+
 struct Proj {
   Fp x, y, z;
 };
@@ -180,17 +190,92 @@ __device__ __forceinline__ Proj proj_add(const Proj& p, const Proj& q) {
   return r;
 }
 
+// The cooperative complete add below runs on groups of kAddGroup lanes.
+constexpr int kAddGroup = 8;
+
+__device__ __forceinline__ Fp fp_select(bool c, const Fp& a, const Fp& b) {
+  Fp r;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) r.w[i] = c ? a.w[i] : b.w[i];
+  return r;
+}
+
+// v[r] for the group rank r (v0 for ranks 6 and 7), by word selects.
+__device__ __forceinline__ Fp fp_pick6(int r, const Fp& v0, const Fp& v1,
+                                       const Fp& v2, const Fp& v3,
+                                       const Fp& v4, const Fp& v5) {
+  Fp o = fp_select(r == 1, v1, v0);
+  o = fp_select(r == 2, v2, o);
+  o = fp_select(r == 3, v3, o);
+  o = fp_select(r == 4, v4, o);
+  return fp_select(r == 5, v5, o);
+}
+
+// `a` as held by rank `src` of the caller's group.
+__device__ __forceinline__ Fp fp_from_rank(unsigned mask, const Fp& a,
+                                           int src) {
+  Fp r;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    r.w[i] = __shfl_sync(mask, a.w[i], src, kAddGroup);
+  return r;
+}
+
+// proj_add by a group of kAddGroup consecutive warp lanes that all hold the
+// same P and Q; `rank` is the lane's index in its group and `mask` names
+// every lane of the warp that calls it. The twelve products of Algorithm 7
+// come in two levels of six independent ones: rank r < 6 computes the r-th
+// product of a level, and every lane gets all six by __shfl_sync. The
+// linear steps between the levels are computed by every lane alike, so a
+// dependent chain of adds waits on two products an add, not twelve, and
+// on two exchanges. Ranks 6 and 7 compute rank 0's product and are never
+// read. The field ops and their order are those of proj_add, so every lane
+// ends with proj_add's bits.
+__device__ __forceinline__ Proj proj_add_group(const Proj& p, const Proj& q,
+                                               int rank, unsigned mask) {
+  // Level 1: X1X2, Y1Y2, Z1Z2, (X1+Y1)(X2+Y2), (X1+Z1)(X2+Z2), (Y1+Z1)(Y2+Z2).
+  const Fp ps = fp_add(fp_select(rank == 5, p.y, p.x),
+                       fp_select(rank == 3, p.y, p.z));
+  const Fp qs = fp_add(fp_select(rank == 5, q.y, q.x),
+                       fp_select(rank == 3, q.y, q.z));
+  const Fp m1 = fp_mont_mul(fp_pick6(rank, p.x, p.y, p.z, ps, ps, ps),
+                            fp_pick6(rank, q.x, q.y, q.z, qs, qs, qs));
+  Fp t0 = fp_from_rank(mask, m1, 0);
+  Fp t1 = fp_from_rank(mask, m1, 1);
+  Fp t2 = fp_from_rank(mask, m1, 2);
+  const Fp a = fp_from_rank(mask, m1, 3);
+  const Fp b = fp_from_rank(mask, m1, 4);
+  const Fp c = fp_from_rank(mask, m1, 5);
+  const Fp t3 = fp_sub(fp_sub(a, t0), t1);
+  const Fp t4 = fp_sub(fp_sub(c, t1), t2);
+  const Fp y3t = fp_sub(fp_sub(b, t0), t2);
+  t0 = fp_add(fp_dbl(t0), t0);
+  t2 = fp_mul9(t2);
+  const Fp z3t = fp_add(t1, t2);
+  t1 = fp_sub(t1, t2);
+  const Fp y3p = fp_mul9(y3t);
+  // Level 2: the six products of X3 = t3·t1 - t4·y3p, Y3 = t1·z3t + y3p·t0,
+  // Z3 = z3t·t4 + t0·t3.
+  const Fp m2 = fp_mont_mul(fp_pick6(rank, t3, t4, t1, y3p, z3t, t0),
+                            fp_pick6(rank, t1, y3p, z3t, t0, t4, t3));
+  Proj r;
+  r.x = fp_sub(fp_from_rank(mask, m2, 0), fp_from_rank(mask, m2, 1));
+  r.y = fp_add(fp_from_rank(mask, m2, 2), fp_from_rank(mask, m2, 3));
+  r.z = fp_add(fp_from_rank(mask, m2, 4), fp_from_rank(mask, m2, 5));
+  return r;
+}
+
 // Complete projective P + affine Q (RCB Algorithm 8, a = 0), the sequence of
 // ec_rows.proj_madd without its trailing select: proj_madd_complete below
 // skips the add for the (0, 0) infinity sentinel, which leaves P unchanged
-// just the same.
+// just the same. Its eleven products call fp_mont_mul_outlined.
 __device__ __forceinline__ Proj proj_madd(const Proj& p, const Fp& x2,
                                           const Fp& y2) {
-  Fp t0 = fp_mont_mul(p.x, x2);
-  Fp t1 = fp_mont_mul(p.y, y2);
-  Fp a = fp_mont_mul(fp_add(p.x, p.y), fp_add(x2, y2));
-  Fp d = fp_mont_mul(y2, p.z);
-  Fp e = fp_mont_mul(x2, p.z);
+  Fp t0 = fp_mont_mul_outlined(p.x, x2);
+  Fp t1 = fp_mont_mul_outlined(p.y, y2);
+  Fp a = fp_mont_mul_outlined(fp_add(p.x, p.y), fp_add(x2, y2));
+  Fp d = fp_mont_mul_outlined(y2, p.z);
+  Fp e = fp_mont_mul_outlined(x2, p.z);
   Fp t3 = fp_sub(fp_sub(a, t0), t1);
   Fp t4 = fp_add(d, p.y);
   Fp y3t = fp_add(e, p.x);
@@ -200,9 +285,12 @@ __device__ __forceinline__ Proj proj_madd(const Proj& p, const Fp& x2,
   t1 = fp_sub(t1, t2);
   Fp y3p = fp_mul9(y3t);
   Proj r;
-  r.x = fp_sub(fp_mont_mul(t3, t1), fp_mont_mul(t4, y3p));
-  r.y = fp_add(fp_mont_mul(t1, z3t), fp_mont_mul(y3p, t0));
-  r.z = fp_add(fp_mont_mul(z3t, t4), fp_mont_mul(t0, t3));
+  r.x = fp_sub(fp_mont_mul_outlined(t3, t1),
+               fp_mont_mul_outlined(t4, y3p));
+  r.y = fp_add(fp_mont_mul_outlined(t1, z3t),
+               fp_mont_mul_outlined(y3p, t0));
+  r.z = fp_add(fp_mont_mul_outlined(z3t, t4),
+               fp_mont_mul_outlined(t0, t3));
   return r;
 }
 

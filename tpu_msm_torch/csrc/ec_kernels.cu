@@ -1,9 +1,14 @@
-// EC kernels for Hopper (sm_90a), one thread per lane or element.
+// EC kernels for Hopper (sm_90a), one thread per lane or element, or one
+// group of eight lanes per dependent chain of adds.
 //
 // Replace the Pallas TPU kernels of tpu_msm/ops/pallas_curve.py:
 //   tpu_msm_scan_madd       <- scan_madd_packed_u16_f15d (and its aliases
 //                              scan_madd_packed_u16, _u16_f15, _u16_mxu)
 //   tpu_msm_padd            <- padd_packed
+//   tpu_msm_window_tail     <- padd_packed, as tpu_msm/ops/pippenger.py
+//                              calls it for M·X(n) - sum X(s_b)
+//   tpu_msm_horner          <- padd_packed, as pippenger.horner_fold calls
+//                              it (curve.proj_double is proj_add(p, p))
 //   tpu_msm_fold_add        <- fold_add_packed
 //   tpu_msm_pmadd           <- pmadd_packed
 //   tpu_msm_jac_madd        <- madd_packed
@@ -18,9 +23,31 @@
 // (24 words) never leaves registers. Lanes are contiguous in memory, so each
 // warp's loads and stores of one limb row coalesce into 128-byte lines.
 //
-// Known limit: at the tuned 4096 scan lanes the scan runs 32 blocks of 128
-// threads, which leaves 100 of the H100's 132 SMs idle. The config is kept
-// as it is for the first port; the occupancy is a question for PERF.md.
+// The scan. Each thread runs a dependent chain of mixed adds whose CIOS
+// carry chains (bn254.cuh) stall it between instructions, so the
+// multipliers stay fed only with several warps on each SM scheduler. One
+// window at the tuned 8192 lanes is 64 blocks of 128 threads: 68 of the 132
+// SMs idle and one warp per scheduler on the rest. So the grid spans a group
+// of G windows (blockIdx.y, G derived in ops/pippenger.py from the card's
+// memory; all 16 at 2^20): 1024 blocks, two waves over every SM, and
+// __launch_bounds__(kThreads, kScanMinBlocks) keeps the registers low
+// enough for kScanMinBlocks blocks on each SM. The step's eleven products
+// call one out-of-line copy of the product (fp_mont_mul_outlined): eleven
+// inlined copies outgrow the instruction caches and take more registers.
+// ptxas for sm_90a (CUDA 12.8): 118 registers, no spills, no stack, so 4
+// blocks (16 warps, 4 a scheduler) an SM. The other mixed-add kernels
+// (pmadd, scan_madd_rows) call the same copy and gain as well.
+//
+// The serial tail: M·X(n) - sum X(s_b) per window (window_tail) and the
+// Horner fold of the window sums (horner) are chains of 16-31 and
+// (W - 1)(c + 1) dependent complete adds, 286 at the main path's c = 16
+// unsigned. As one padd launch per add, each add cost a host-side launch
+// and one thread's twelve products in sequence. Here each chain is one
+// launch, and each add is proj_add_group: eight lanes share its twelve
+// products, six at a time, so an add waits on two products and on the
+// linear steps between them. The chains are bound by that latency (one
+// product's is measured by montmul_chain on one lane), not by the card's
+// throughput; on the H100 an add takes about 4.4 product latencies.
 //
 // The elementwise kernels (padd, pmadd, jac_madd, jac_add) read their
 // operands once and write the sum once: 320-384 bytes of u16 rows in and
@@ -45,17 +72,24 @@ using namespace bn254;
 namespace {
 
 constexpr int kThreads = 128;
+constexpr int kScanMinBlocks = 4;
+// The tail kernels' blocks: one warp's first kAddGroup lanes.
+constexpr unsigned kGroupMask = (1u << kAddGroup) - 1u;
 
-// Inclusive per-lane prefix sum over the step axis by complete mixed add.
-// gx, gy: (8, steps, lanes) packed affine words, (0, 0) = infinity.
-// out: (48, steps, lanes) canonical u16 rows X || Y || Z of the running sums.
-__global__ void __launch_bounds__(kThreads)
+// Inclusive per-lane prefix sum over the step axis by complete mixed add,
+// for a group of windows. gx, gy: (G, 8, steps, lanes) packed affine words,
+// (0, 0) = infinity. out: (G, 48, steps, lanes) canonical u16 rows
+// X || Y || Z of the running sums. blockIdx.y is the window.
+__global__ void __launch_bounds__(kThreads, kScanMinBlocks)
     scan_madd_kernel(const uint32_t* __restrict__ gx,
                      const uint32_t* __restrict__ gy,
                      uint32_t* __restrict__ out, int steps, int lanes) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= lanes) return;
   const size_t plane = (size_t)steps * lanes;
+  gx += blockIdx.y * 8 * plane;
+  gy += blockIdx.y * 8 * plane;
+  out += blockIdx.y * 48 * plane;
   Proj acc = proj_infinity();
   for (int k = 0; k < steps; ++k) {
     const size_t off = (size_t)k * lanes + lane;
@@ -92,6 +126,74 @@ __global__ void __launch_bounds__(kThreads)
   store_u16_rows(ox, n, i, r.x);
   store_u16_rows(oy, n, i, r.y);
   store_u16_rows(oz, n, i, r.z);
+}
+
+// Window sums M·X(n) - sum X(s_b) from (16, W) u16 rows of X(n) (nx, ny, nz)
+// and of sum X(s_b) (sx, sy, sz), one window per block of kAddGroup lanes.
+// M·X(n) is 2^(c-1)·X(n) by c - 1 doublings (signed digits) or
+// (2^c - 1)·X(n) by c - 1 rounds of acc = 2·acc + X(n) (unsigned), each
+// doubling the complete add of a point to itself.
+__global__ void __launch_bounds__(kAddGroup)
+    window_tail_kernel(const uint32_t* __restrict__ nx,
+                       const uint32_t* __restrict__ ny,
+                       const uint32_t* __restrict__ nz,
+                       const uint32_t* __restrict__ sx,
+                       const uint32_t* __restrict__ sy,
+                       const uint32_t* __restrict__ sz,
+                       uint32_t* __restrict__ ox, uint32_t* __restrict__ oy,
+                       uint32_t* __restrict__ oz, int w, int c,
+                       int signed_digits) {
+  const int win = blockIdx.x;
+  const int rank = threadIdx.x;
+  Proj xn;
+  xn.x = load_u16_rows(nx, w, win);
+  xn.y = load_u16_rows(ny, w, win);
+  xn.z = load_u16_rows(nz, w, win);
+  Proj acc = xn;
+  for (int k = 1; k < c; ++k) {
+    acc = proj_add_group(acc, acc, rank, kGroupMask);
+    if (!signed_digits) acc = proj_add_group(acc, xn, rank, kGroupMask);
+  }
+  Proj neg;  // -sum X(s_b) = (X : -Y : Z), with -0 = 0
+  neg.x = load_u16_rows(sx, w, win);
+  neg.y = fp_sub(fp_zero(), load_u16_rows(sy, w, win));
+  neg.z = load_u16_rows(sz, w, win);
+  acc = proj_add_group(acc, neg, rank, kGroupMask);
+  if (rank == 0) {
+    store_u16_rows(ox, w, win, acc.x);
+    store_u16_rows(oy, w, win, acc.y);
+    store_u16_rows(oz, w, win, acc.z);
+  }
+}
+
+// The Horner fold of (W, 16, 1) window sums into the (16, 1) MSM result:
+// from the top window down, c doublings, then the next window's sum; one
+// block of kAddGroup lanes.
+__global__ void __launch_bounds__(kAddGroup)
+    horner_kernel(const uint32_t* __restrict__ wx,
+                  const uint32_t* __restrict__ wy,
+                  const uint32_t* __restrict__ wz, uint32_t* __restrict__ ox,
+                  uint32_t* __restrict__ oy, uint32_t* __restrict__ oz, int w,
+                  int c) {
+  const int rank = threadIdx.x;
+  Proj acc;
+  acc.x = load_u16_rows(wx + 16 * (w - 1), 1, 0);
+  acc.y = load_u16_rows(wy + 16 * (w - 1), 1, 0);
+  acc.z = load_u16_rows(wz + 16 * (w - 1), 1, 0);
+  for (int win = w - 2; win >= 0; --win) {
+    for (int k = 0; k < c; ++k)
+      acc = proj_add_group(acc, acc, rank, kGroupMask);
+    Proj s;
+    s.x = load_u16_rows(wx + 16 * win, 1, 0);
+    s.y = load_u16_rows(wy + 16 * win, 1, 0);
+    s.z = load_u16_rows(wz + 16 * win, 1, 0);
+    acc = proj_add_group(acc, s, rank, kGroupMask);
+  }
+  if (rank == 0) {
+    store_u16_rows(ox, 1, 0, acc.x);
+    store_u16_rows(oy, 1, 0, acc.y);
+    store_u16_rows(oz, 1, 0, acc.z);
+  }
 }
 
 // Per-lane EC sum over the step axis: (16, steps, lanes) -> (16, lanes),
@@ -215,9 +317,10 @@ unsigned blocks_for(long long n) {
 extern "C" {
 
 int tpu_msm_scan_madd(const uint32_t* gx, const uint32_t* gy, uint32_t* out,
-                      int steps, int lanes, void* stream) {
-  scan_madd_kernel<<<blocks_for(lanes), kThreads, 0, (cudaStream_t)stream>>>(
-      gx, gy, out, steps, lanes);
+                      int windows, int steps, int lanes, void* stream) {
+  const dim3 grid(blocks_for(lanes), (unsigned)windows);
+  scan_madd_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(gx, gy, out,
+                                                                steps, lanes);
   return (int)cudaGetLastError();
 }
 
@@ -227,6 +330,24 @@ int tpu_msm_padd(const uint32_t* ax, const uint32_t* ay, const uint32_t* az,
                  void* stream) {
   padd_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
       ax, ay, az, bx, by, bz, ox, oy, oz, n);
+  return (int)cudaGetLastError();
+}
+
+int tpu_msm_window_tail(const uint32_t* nx, const uint32_t* ny,
+                        const uint32_t* nz, const uint32_t* sx,
+                        const uint32_t* sy, const uint32_t* sz, uint32_t* ox,
+                        uint32_t* oy, uint32_t* oz, int w, int c,
+                        int signed_digits, void* stream) {
+  window_tail_kernel<<<(unsigned)w, kAddGroup, 0, (cudaStream_t)stream>>>(
+      nx, ny, nz, sx, sy, sz, ox, oy, oz, w, c, signed_digits);
+  return (int)cudaGetLastError();
+}
+
+int tpu_msm_horner(const uint32_t* wx, const uint32_t* wy, const uint32_t* wz,
+                   uint32_t* ox, uint32_t* oy, uint32_t* oz, int w, int c,
+                   void* stream) {
+  horner_kernel<<<1, kAddGroup, 0, (cudaStream_t)stream>>>(wx, wy, wz, ox, oy,
+                                                           oz, w, c);
   return (int)cudaGetLastError();
 }
 

@@ -12,6 +12,10 @@ There is no fallback from one to the other.
                                          (:615), scan_madd_packed_u16_f15
                                          (:687), scan_madd_packed_u16_mxu (:860)
   padd            padd_kernel            padd_packed (:1009)
+  window_tail     window_tail_kernel     padd_packed, in pippenger.py's
+                                         M·X(n) - sum X(s_b) (:475-482)
+  horner          horner_kernel          padd_packed, in pippenger.py's
+                                         horner_fold (:690-708)
   fold_add        fold_add_kernel        fold_add_packed (:953)
   pmadd           pmadd_kernel           pmadd_packed (:988)
   jac_madd        jac_madd_kernel        madd_packed (:367)
@@ -20,8 +24,10 @@ There is no fallback from one to the other.
   montmul_chain   montmul_chain_kernel   benches/montmul_benchmark.py `run`
                                          (:89-107, built by _build_kernel)
 
-The fused MSM path runs scan_madd, padd and fold_add; the per-window path
-runs pmadd (one launch per scan step), padd and fold_add. jac_madd, jac_add
+The fused MSM path runs scan_madd (one launch per group of windows), padd,
+fold_add, window_tail and horner; the per-window path runs pmadd (one
+launch per scan step), padd, fold_add, window_tail (once per window) and
+horner. jac_madd, jac_add
 and scan_madd_rows run in the profiler's kernel check
 (`tpu_msm_torch.cli.profiler --check-kernels`), as their TPU kernels did.
 montmul_chain runs in the field core's microbench
@@ -84,34 +90,50 @@ def _elementwise(name, ops):
 
 def scan_madd_plain(gx: torch.Tensor, gy: torch.Tensor) -> torch.Tensor:
     """gx, gy: (8, steps, lanes) packed affine coordinates, (0, 0) =
-    infinity. Returns (48, steps, lanes) int32 canonical u16 rows X‖Y‖Z:
-    column (k, l) is the sum of points 0..k of lane l, starting from
+    infinity, or (G, 8, steps, lanes) for G windows at once. Returns
+    (48, steps, lanes) (or (G, 48, steps, lanes)) int32 canonical u16 rows
+    X‖Y‖Z: column (k, l) is the sum of points 0..k of lane l, starting from
     (0 : 1 : 0)."""
     scan_madd_plain.calls += 1
-    qx, qy = unpack_u16_pairs(gx), unpack_u16_pairs(gy)
-    acc = curve.proj_infinity((gx.shape[2],), gx.device, _I64)
+    one = gx.dim() == 3
+    if one:
+        gx, gy = gx[None], gy[None]
+    g, _, steps, lanes = gx.shape
+
+    def lanes_last(a):  # (G, 8, S, L) -> (8, S, G·L): windows side by side
+        return a.permute(1, 2, 0, 3).reshape(8, steps, g * lanes)
+
+    qx, qy = unpack_u16_pairs(lanes_last(gx)), unpack_u16_pairs(lanes_last(gy))
+    acc = curve.proj_infinity((g * lanes,), gx.device, _I64)
     rows = []
-    for k in range(gx.shape[1]):
+    for k in range(steps):
         acc = curve.proj_madd(acc, AffinePoint(qx[:, k], qy[:, k]))
         rows.append(torch.cat(acc))
-    return torch.stack(rows, dim=1).to(_I32)
+    out = (torch.stack(rows, dim=1).to(_I32).reshape(48, steps, g, lanes)
+           .permute(2, 0, 1, 3).contiguous())
+    return out[0] if one else out
 
 
 scan_madd_plain.calls = 0
 
 
 def scan_madd(gx: torch.Tensor, gy: torch.Tensor) -> torch.Tensor:
-    """Kernel wrapper of scan_madd_plain (same arguments and result)."""
+    """Kernel wrapper of scan_madd_plain (same arguments and result): one
+    launch for all G windows."""
     if not _build.on_cuda(gx, gy):
         return scan_madd_plain(gx, gy)
-    if gx.dim() != 3 or gx.shape[0] != 8 or gy.shape != gx.shape:
-        raise ValueError(f"scan inputs must both be (8, steps, lanes), got "
-                         f"{tuple(gx.shape)} and {tuple(gy.shape)}")
-    _, steps, lanes = gx.shape
-    if steps < 1 or lanes < 1:
-        raise ValueError("scan needs at least one step and one lane")
-    out = torch.empty((48, steps, lanes), dtype=_I32, device=gx.device)
-    _build.launch("tpu_msm_scan_madd", gx.device, gx, gy, out, steps, lanes)
+    if gx.dim() not in (3, 4) or gx.shape[-3] != 8 or gy.shape != gx.shape:
+        raise ValueError(f"scan inputs must both be (8, steps, lanes) or "
+                         f"(G, 8, steps, lanes), got {tuple(gx.shape)} and "
+                         f"{tuple(gy.shape)}")
+    g = gx.shape[0] if gx.dim() == 4 else 1
+    steps, lanes = gx.shape[-2:]
+    if g < 1 or steps < 1 or lanes < 1:
+        raise ValueError("scan needs at least one window, step and lane")
+    out = torch.empty(gx.shape[:-3] + (48, steps, lanes), dtype=_I32,
+                      device=gx.device)
+    _build.launch("tpu_msm_scan_madd", gx.device, gx, gy, out, g, steps,
+                  lanes)
     scan_madd.launches += 1
     return out
 
@@ -143,6 +165,108 @@ def padd(ax, ay, az, bx, by, bz):
 
 
 padd.launches = 0
+
+
+# --------------------------------------------------------------------------
+# The serial tail of the MSM: the window sums M·X(n) - sum X(s_b), and the
+# Horner fold of the window sums. Chains of dependent complete adds, one
+# launch each on the card.
+# --------------------------------------------------------------------------
+
+def window_tail_by_adds(add, nx, ny, nz, sx, sy, sz, c: int,
+                        signed_digits: bool):
+    """M·X(n) - sum X(s_b) for (16, W) coordinates by `add`, one
+    elementwise add at a time (`tpu_msm/ops/pippenger.py:475-482`):
+    M = 2^(c-1) by c - 1 doublings (signed digits) or M = 2^c - 1 by c - 1
+    rounds of acc = 2·acc + X(n); a doubling is the add of a point to
+    itself."""
+    xn = (nx, ny, nz)
+    acc = xn
+    for _ in range(c - 1):
+        acc = add(*acc, *acc)
+        if not signed_digits:
+            acc = add(*acc, *xn)
+    return add(*acc, sx, field.neg_mod(sy), sz)
+
+
+def horner_by_adds(add, wx, wy, wz, c: int):
+    """Fold (W, 16, 1) window sums into the (16, 1) MSM result by `add`,
+    top window first, c doublings between windows
+    (`tpu_msm/ops/pippenger.py:690-708`)."""
+    acc = (wx[-1], wy[-1], wz[-1])
+    for widx in range(wx.shape[0] - 2, -1, -1):
+        for _ in range(c):
+            acc = add(*acc, *acc)
+        acc = add(*acc, wx[widx], wy[widx], wz[widx])
+    return acc
+
+
+def window_tail_plain(nx, ny, nz, sx, sy, sz, c: int, signed_digits: bool):
+    """X(n) (nx, ny, nz) and sum X(s_b) (sx, sy, sz), each three (16, W)
+    u16-row coordinates -> the three of the W window sums
+    M·X(n) - sum X(s_b), by padd_plain (window_tail_by_adds)."""
+    window_tail_plain.calls += 1
+    return window_tail_by_adds(padd_plain, nx, ny, nz, sx, sy, sz, c,
+                               signed_digits)
+
+
+window_tail_plain.calls = 0
+
+
+def _check_tail_args(c: int, w: int) -> None:
+    if c < 1 or w < 1:
+        raise ValueError(f"the tail needs c >= 1 and W >= 1, got c = {c}, "
+                         f"W = {w}")
+
+
+def window_tail(nx, ny, nz, sx, sy, sz, c: int, signed_digits: bool):
+    """Kernel wrapper of window_tail_plain (same arguments and result): one
+    launch, one block of eight lanes per window."""
+    ops = (nx, ny, nz, sx, sy, sz)
+    if not _build.on_cuda(*ops):
+        return window_tail_plain(*ops, c, signed_digits)
+    if nx.dim() != 2 or nx.shape[0] != 16 or any(t.shape != nx.shape
+                                                 for t in ops):
+        raise ValueError("window_tail operands must all be (16, W)")
+    _check_tail_args(c, nx.shape[1])
+    out = tuple(torch.empty_like(nx) for _ in range(3))
+    _build.launch("tpu_msm_window_tail", nx.device, *ops, *out, nx.shape[1],
+                  c, int(signed_digits))
+    window_tail.launches += 1
+    return out
+
+
+window_tail.launches = 0
+
+
+def horner_plain(wx, wy, wz, c: int):
+    """Three (W, 16, 1) u16-row coordinates of the window sums -> the three
+    (16, 1) of the MSM result, by padd_plain (horner_by_adds)."""
+    horner_plain.calls += 1
+    return horner_by_adds(padd_plain, wx, wy, wz, c)
+
+
+horner_plain.calls = 0
+
+
+def horner(wx, wy, wz, c: int):
+    """Kernel wrapper of horner_plain (same arguments and result): one
+    launch of one block of eight lanes."""
+    if not _build.on_cuda(wx, wy, wz):
+        return horner_plain(wx, wy, wz, c)
+    if wx.dim() != 3 or wx.shape[1:] != (16, 1) or wy.shape != wx.shape \
+            or wz.shape != wx.shape:
+        raise ValueError("horner operands must all be (W, 16, 1)")
+    _check_tail_args(c, wx.shape[0])
+    out = tuple(torch.empty((16, 1), dtype=_I32, device=wx.device)
+                for _ in range(3))
+    _build.launch("tpu_msm_horner", wx.device, wx, wy, wz, *out, wx.shape[0],
+                  c)
+    horner.launches += 1
+    return out
+
+
+horner.launches = 0
 
 
 # --------------------------------------------------------------------------

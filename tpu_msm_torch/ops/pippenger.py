@@ -8,15 +8,16 @@ bucket_b = X(s_{b+1}) - X(s_b), each window sum telescopes:
 
 Two routes compute the window sums, as in the JAX package:
 
-* the fused route (`_fused_sums`): `_window_heavy` per window (one stable
-  sort carrying the packed coordinates, the scan kernel, the histogram
-  kernel, one gather of the prefix sums at the bucket boundaries), then
+* the fused route (`_fused_sums`): `_window_heavy` per group of windows
+  (`window_group_size`; one stable sort carrying the packed coordinates and
+  one scan launch for the group, then per window the histogram kernel and
+  one gather of the prefix sums at the bucket boundaries), then
   `_sides_batched` over all windows (inter-lane carries, the X(s_b) fold
-  and rolled tree);
+  and rolled tree, the window_tail kernel);
 * the per-window route (`_per_window_sums`, the JAX package's `_msm_window`
   fallback): per window, a sort of point indices, one `pmadd` launch per
-  scan step, a Hillis–Steele scan of the lane totals, the query adds and
-  `ec_reduce`.
+  scan step, a Hillis–Steele scan of the lane totals, the query adds,
+  `ec_reduce` and the window_tail kernel.
 
 Which route runs is the JAX package's device rule (`pippenger.py:630`,
 `_use_pallas` and `_FUSED_MAX_LANES`): the fused route iff the scan lanes
@@ -28,10 +29,10 @@ one association of EC adds, on the CPU, on the card and in the JAX package:
 the per-window sums are bit-identical to `tpu_msm.ops.pippenger.window_sums`
 on the JAX CPU backend, and the fused ones projectively equal to it.
 
-`horner_fold` then joins the windows. Every EC add goes through `ec_add` or
-`ec_madd` (the padd and pmadd kernels on the card, their plain versions on
-the CPU), every fold through the fold_add kernel; everything else is plain
-torch, as the JAX package left it to XLA.
+`horner_fold` then joins the windows (the horner kernel). Every other EC
+add goes through `ec_add` or `ec_madd` (the padd and pmadd kernels on the
+card, their plain versions on the CPU), every fold through the fold_add
+kernel; everything else is plain torch, as the JAX package left it to XLA.
 
 With `cfg.glv` both routes first split every scalar by the GLV
 endomorphism (`_glv_split`, `pippenger.py:583-598` of the JAX package):
@@ -51,12 +52,20 @@ import dataclasses
 import torch
 
 from tpu_msm_torch.ops import curve, field, glv, hist
-from tpu_msm_torch.ops.cuda_curve import fold_add, padd, pmadd, scan_madd
+from tpu_msm_torch.ops.cuda_curve import (fold_add, horner, padd, pmadd,
+                                          scan_madd, window_tail)
 from tpu_msm_torch.ops.curve import AffinePoint, ProjPoint
 from tpu_msm_torch.utils.config import MsmConfig, select_config
 
 # Coordinate row blocks of the scan kernel's 48-row output.
 _XYZ = (slice(0, 16), slice(16, 32), slice(32, 48))
+
+# What one window of a `_window_heavy` group holds per padded point: the
+# sorted digit and its 16 payload words, the sort's int64 permutation and
+# the scan's 48 output rows.
+GROUP_BYTES_PER_POINT = 4 * (1 + 16) + 8 + 4 * 48
+# The group budget on the CPU, which has no device memory to take 1/8 of.
+CPU_GROUP_BUDGET = 1 << 30
 
 # The JAX package's route rule: its Pallas kernels took lane counts that are
 # multiples of 1024 (`_PALLAS_MIN_WIDTH`), its whole-stage kernels at most
@@ -130,18 +139,46 @@ def pack_u16_rows(a: torch.Tensor) -> torch.Tensor:
     return torch.where(v >= 1 << 31, v - (1 << 32), v).to(torch.int32)
 
 
-def _sorted_scan_inputs(digits, ppx, ppy_w, lanes: int, steps: int):
-    """Stable digit sort of the packed coordinates into the scan kernel's
-    (8, steps, lanes) layout: sorted position p sits at lane p // steps,
-    step p % steps (`pippenger.py:302-305`). Both JAX `sort_impl` values give
-    this permutation. Returns (sorted_digits, sgx, sgy)."""
-    sorted_digits, perm = torch.sort(digits, stable=True)
+def _sorted_scan_inputs(digits, negm, ppx, ppy, lanes: int, steps: int):
+    """Stable digit sort of each of G windows' packed coordinates into the
+    scan kernel's (G, 8, steps, lanes) layout: sorted position p sits at
+    lane p // steps, step p % steps (`pippenger.py:302-305`). Both JAX
+    `sort_impl` values give this permutation.
 
-    def lay(pp):
-        return (pp.index_select(1, perm).reshape(8, lanes, steps)
-                .transpose(1, 2).contiguous())
+    digits: (G, n_pad); negm: (G, n_pad) negation masks or None; ppx:
+    (8, n_pad) packed x; ppy: (8, n_pad) packed y, or (8, 2·n_pad) y then -y
+    with negm, where window g takes -y at the points its mask negates.
+    Returns (sorted_digits (G, n_pad), sgx, sgy)."""
+    g, n_pad = digits.shape
+    sorted_digits, perm = torch.sort(digits, dim=1, stable=True)
+    # Column k·lanes + l of window g is its sorted position l·steps + k.
+    idx = perm.view(g, lanes, steps).transpose(1, 2).reshape(g, 1, n_pad)
+    del perm
 
-    return sorted_digits, lay(ppx), lay(ppy_w)
+    def lay(pp, index):  # one gather for all G windows, (G, 8, steps, lanes)
+        return torch.gather(pp.expand(g, 8, pp.shape[1]), 2,
+                            index.expand(g, 8, n_pad)).view(g, 8, steps,
+                                                            lanes)
+
+    sgx = lay(ppx, idx)
+    if negm is not None:
+        idx = idx + n_pad * torch.gather(negm, 1, idx[:, 0])[:, None]
+    return sorted_digits, sgx, lay(ppy, idx)
+
+
+def window_group_size(w: int, n_pad: int, device) -> int:
+    """How many windows `_fused_sums` hands `_window_heavy` at once:
+    G = min(W, budget // (n_pad · GROUP_BYTES_PER_POINT)), at least 1.
+
+    The budget is 1/8 of the card's memory
+    (`torch.cuda.get_device_properties(device).total_memory`), or the fixed
+    CPU_GROUP_BUDGET on the CPU. At 2^20 points on the H100 that is all 16
+    windows of c = 16 in one group (about 4.5 GB of transients, one scan
+    launch of 1024 blocks); at 2^24 two windows a group."""
+    device = torch.device(device)
+    budget = (torch.cuda.get_device_properties(device).total_memory // 8
+              if device.type == "cuda" else CPU_GROUP_BUDGET)
+    return max(1, min(w, budget // (n_pad * GROUP_BYTES_PER_POINT)))
 
 
 def _segment_starts(digits, m: int, cfg: MsmConfig):
@@ -155,38 +192,46 @@ def _segment_starts(digits, m: int, cfg: MsmConfig):
 
 
 def _window_heavy(digits, negm, ppx, ppy, n: int, cfg: MsmConfig):
-    """The per-window heavy stages: sort, scan, histogram, boundary gather.
+    """The heavy stages of a group of G windows: one sort and one scan
+    launch for the group, then per window the histogram and the boundary
+    gather. digits, negm: (G, n_pad) rows of the group's windows (negm
+    None for unsigned digits); ppx, ppy as `_sorted_scan_inputs` takes them.
 
-    Returns only small arrays: the lane totals (48, lanes), the prefix sums
-    at the m+1 queries s_1..s_m, n (48, m+1), the query lanes and the
-    zero-query mask. The O(n) transients die here; at n = 2^24 they are
-    about 1.1 GB of sorted payload (17 x 4 B x 2^24; the sort's int64
-    permutation and the layout copy add the same order again) and 3.2 GB
-    of scan output (48 x 4 B x 2^24). That is well inside the H100's
-    80 GB, so the port runs every size unstreamed."""
+    Returns one tuple of small arrays per window: the lane totals
+    (48, lanes), the prefix sums at the m+1 queries s_1..s_m, n (48, m+1),
+    the query lanes and the zero-query mask. The group's O(G·n) transients
+    are alive together and die here, before the next group starts:
+    GROUP_BYTES_PER_POINT (268) bytes a point and window, the sorted digits
+    and payload, the sort's int64 permutation and the 48-row scan output,
+    which `window_group_size` keeps within 1/8 of the card's memory (about
+    4.5 GB for 16 windows at 2^20; at 2^24 a group of two windows holds
+    about 9 GB). So the port runs every size unstreamed."""
     m = cfg.buckets_per_window()
     lanes = cfg.scan_lanes
-    steps = digits.shape[0] // lanes
-    ppy_w = ppy[0] if negm is None else torch.where(negm[None, :], ppy[1],
-                                                    ppy[0])
-    sorted_digits, sgx, sgy = _sorted_scan_inputs(digits, ppx, ppy_w, lanes,
-                                                  steps)
-    ys48 = scan_madd(sgx, sgy).reshape(48, steps * lanes)
-
-    # "hist" is order-free: it counts the unsorted digits.
-    starts = _segment_starts(
-        digits if cfg.segment_starts == "hist" else sorted_digits, m, cfg)
-    queries = torch.cat([starts, starts.new_full((1,), n)])
-    is_zero = queries == 0
-    pos = queries.clamp(min=1) - 1
-    lq = pos // steps
-    kq = pos % steps
-    # Column k*lanes + l of the flat prefix array is step k of lane l.
-    loc48 = ys48.index_select(1, (kq * lanes + lq).to(torch.int64))
-    # A copy, not a view: a view would keep this window's whole prefix
-    # array alive until the sides stage (16 x 201 MB at 2^20).
-    totals = ys48[:, (steps - 1) * lanes:].clone()
-    return totals, loc48, lq, is_zero
+    steps = digits.shape[1] // lanes
+    sorted_digits, sgx, sgy = _sorted_scan_inputs(digits, negm, ppx, ppy,
+                                                  lanes, steps)
+    ys = scan_madd(sgx, sgy)  # (G, 48, steps, lanes), one launch
+    del sgx, sgy
+    smalls = []
+    for g in range(digits.shape[0]):
+        ys48 = ys[g].view(48, steps * lanes)
+        # "hist" is order-free: it counts the unsorted digits.
+        starts = _segment_starts(
+            digits[g] if cfg.segment_starts == "hist" else sorted_digits[g],
+            m, cfg)
+        queries = torch.cat([starts, starts.new_full((1,), n)])
+        is_zero = queries == 0
+        pos = queries.clamp(min=1) - 1
+        lq = pos // steps
+        kq = pos % steps
+        # Column k*lanes + l of the flat prefix array is step k of lane l.
+        loc48 = ys48.index_select(1, (kq * lanes + lq).to(torch.int64))
+        # A copy, not a view: a view would keep the group's whole prefix
+        # array alive until the sides stage (16 x 201 MB at 2^20).
+        totals = ys48[:, (steps - 1) * lanes:].clone()
+        smalls.append((totals, loc48, lq, is_zero))
+    return smalls
 
 
 def _win_roll(a, wins: int, sh: int, seg: int):
@@ -196,19 +241,12 @@ def _win_roll(a, wins: int, sh: int, seg: int):
     return torch.roll(a.reshape(shp[:-1] + (wins, seg)), sh, dims=-1).reshape(shp)
 
 
-def _mul_pow2(p: ProjPoint, k: int) -> ProjPoint:
-    """2^k · p by k complete self-adds (signed-digit window weight)."""
-    for _ in range(k):
-        p = ec_add(p, p)
-    return p
-
-
-def _mul_all_ones(p: ProjPoint, c: int) -> ProjPoint:
-    """(2^c - 1) · p by c-1 rounds of acc = 2·acc + p."""
-    acc = p
-    for _ in range(c - 1):
-        acc = ec_add(ec_add(acc, acc), p)
-    return acc
+def _window_tail(x_n: ProjPoint, sum_starts: ProjPoint,
+                 cfg: MsmConfig) -> ProjPoint:
+    """The (16, W) window sums M·X(n) - sum_b X(s_b) (window_tail kernel)."""
+    return ProjPoint(*window_tail(
+        *(a.contiguous() for a in (*x_n, *sum_starts)), cfg.window_bits,
+        cfg.signed_digits))
 
 
 def _sides_batched(totals48, loc48, lq, is_zero, cfg: MsmConfig) -> ProjPoint:
@@ -272,12 +310,8 @@ def _sides_batched(totals48, loc48, lq, is_zero, cfg: MsmConfig) -> ProjPoint:
         pts = ec_add(pts, rolled)
     sum_starts = ProjPoint(*(a.reshape(16, w, width)[:, :, 0] for a in pts))
 
-    # window_sum = M·X(n) - sum_b X(s_b), batched over the windows.
-    if cfg.signed_digits:
-        mx = _mul_pow2(x_n, cfg.window_bits - 1)
-    else:
-        mx = _mul_all_ones(x_n, cfg.window_bits)
-    out = ec_add(mx, curve.proj_neg(sum_starts))  # (16, W)
+    # window_sum = M·X(n) - sum_b X(s_b), all windows in one launch.
+    out = _window_tail(x_n, sum_starts, cfg)  # (16, W)
     return ProjPoint(*(a.permute(1, 0)[:, :, None] for a in out))
 
 
@@ -337,7 +371,6 @@ def _msm_window(digits, negm, px, py, n: int, cfg: MsmConfig) -> ProjPoint:
     the padding; negm: (n_pad,) negation mask or None; px: (16, n+1) and
     py: ((16, n+1), (16, n+1) or None), the coordinates (y and -y) with an
     infinity column appended, which the padding positions point at."""
-    c = cfg.window_bits
     m = cfg.buckets_per_window()
     n_pad = digits.shape[0]
     lanes = cfg.scan_lanes
@@ -392,11 +425,7 @@ def _msm_window(digits, negm, px, py, n: int, cfg: MsmConfig) -> ProjPoint:
     x_n = ProjPoint(*(a[:, m:m + 1] for a in xvals))
     sum_starts = ec_reduce(ProjPoint(*(a[:, :m] for a in xvals)),
                            cfg.reduce_fanout)
-    if cfg.signed_digits:
-        mx = _mul_pow2(x_n, c - 1)
-    else:
-        mx = _mul_all_ones(x_n, c)
-    return ec_add(mx, curve.proj_neg(sum_starts))
+    return _window_tail(x_n, sum_starts, cfg)
 
 
 # --------------------------------------------------------------------------
@@ -458,17 +487,23 @@ def _digits(points: AffinePoint, scalar_limbs, cfg: MsmConfig):
 
 
 def _fused_sums(points: AffinePoint, scalar_limbs, cfg: MsmConfig) -> ProjPoint:
-    """Window sums (W, 16, 1) by the fused route."""
+    """Window sums (W, 16, 1) by the fused route: `_window_heavy` over
+    groups of `window_group_size` windows, then `_sides_batched`."""
     points, cfg, n, digits, negm, y_neg = _digits(points, scalar_limbs, cfg)
-    pad = digits.shape[1] - n
+    w, n_pad = digits.shape
     # The padding positions carry the (0, 0) affine infinity: the scan
-    # skips it.
-    ppx = _pad_cols(pack_u16_rows(points.x), pad, 0)
-    ppy = (_pad_cols(pack_u16_rows(points.y), pad, 0),
-           None if y_neg is None else _pad_cols(pack_u16_rows(y_neg), pad, 0))
-    smalls = [_window_heavy(digits[i], None if negm is None else negm[i],
-                            ppx, ppy, n, cfg)
-              for i in range(cfg.num_windows())]
+    # skips it. With signed digits -y follows y, so one gather serves both.
+    ppx = _pad_cols(pack_u16_rows(points.x), n_pad - n, 0)
+    ppy = _pad_cols(pack_u16_rows(points.y), n_pad - n, 0)
+    if y_neg is not None:
+        ppy = torch.cat([ppy, _pad_cols(pack_u16_rows(y_neg), n_pad - n, 0)],
+                        dim=1)
+    group = window_group_size(w, n_pad, digits.device)
+    smalls = []
+    for s in range(0, w, group):
+        smalls += _window_heavy(digits[s:s + group],
+                                None if negm is None else negm[s:s + group],
+                                ppx, ppy, n, cfg)
     return _sides_batched(*(torch.stack(s) for s in zip(*smalls)), cfg=cfg)
 
 
@@ -502,14 +537,9 @@ def window_sums(points: AffinePoint, scalar_limbs: torch.Tensor,
 
 
 def horner_fold(wsums: ProjPoint, c: int) -> ProjPoint:
-    """Fold (W, 16, 1) window sums into the MSM result, top window first,
-    c doublings between windows. Every add is an `ec_add` of width 1."""
-    acc = ProjPoint(*(a[-1] for a in wsums))
-    for widx in range(wsums.x.shape[0] - 2, -1, -1):
-        for _ in range(c):
-            acc = ec_add(acc, acc)
-        acc = ec_add(acc, ProjPoint(*(a[widx] for a in wsums)))
-    return acc
+    """Fold (W, 16, 1) window sums into the (16, 1) MSM result, top window
+    first, c doublings between windows: one horner kernel launch."""
+    return ProjPoint(*horner(*(a.contiguous() for a in wsums), c))
 
 
 def msm_projective(points: AffinePoint, scalar_limbs: torch.Tensor,
