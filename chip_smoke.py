@@ -97,14 +97,43 @@ def _events_ms(fn, inner):
     return start.elapsed_time(end) / inner
 
 
+# A call at least this long (ms) is timed once: its warm-up call is the
+# timing (the plain versions take 0.2-12 s at the main path's shapes).
+LONG_CALL_MS = 200.0
+
+
 def cuda_ms(fn, runs=3, inner=None):
     """Median over `runs` of the mean time of `inner` back-to-back calls,
-    in ms, by CUDA events (after one warm-up call). inner=None: as many
-    calls as fill TIMING_SPAN_MS, judged by one timed call, at most 50."""
-    fn()
+    in ms, by CUDA events (after one warm-up call, which is the timing when
+    it takes LONG_CALL_MS or more). inner=None: as many calls as fill
+    TIMING_SPAN_MS, judged by one timed call, at most 50."""
+    first = _events_ms(fn, 1)
+    if first >= LONG_CALL_MS:
+        return first
     if inner is None:
         inner = min(50, math.ceil(TIMING_SPAN_MS / _events_ms(fn, 1)))
     return statistics.median(_events_ms(fn, inner) for _ in range(runs))
+
+
+def graph_ms(fn):
+    """The device time of one call of `fn`, in ms: GRAPH_CALLS back-to-back
+    calls captured in one CUDA graph, whose replays cuda_ms times, so that
+    the host's share of a call (its Python and launch) is not in it."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # the warm-up that capture wants, on a side stream
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(GRAPH_CALLS):
+            fn()
+    return cuda_ms(graph.replay) / GRAPH_CALLS
+
+
+GRAPH_CALLS = 20
 
 
 def max_abs_err(got, want):
@@ -280,21 +309,24 @@ def bound(work):
 
 
 def timer(phase):
-    """timed(name, shape, kernel_fn, plain_fn, work, ...): both by CUDA
-    events, the bound of `work` (see bound) beside them, and the library
-    call's time where one PyTorch call computes the same function."""
+    """timed(name, shape, kernel_fn, plain_fn, work, ...): the kernel's
+    device time (graph_ms) and its time a call back to back with the host's
+    share (cuda_ms, `call_ms`), the plain version's (cuda_ms), the bound of
+    `work` (see bound) beside them, and the library call's time where one
+    PyTorch call computes the same function."""
 
     def timed(name, shape, fn, plain, work, plain_shape=None, inner=None,
               library=None):
-        ms = cuda_ms(fn, inner=inner)
+        ms = graph_ms(fn)
+        call_ms = cuda_ms(fn, inner=inner)
         pms = cuda_ms(plain, inner=inner)
         lib = cuda_ms(library, inner=inner) if library else None
-        rec = {"shape": str(shape), "ms": ms, "plain_ms": pms,
-               "plain_shape": str(plain_shape or shape), **bound(work),
-               "library_ms": lib}
-        log(phase, f"time {name} {shape}: kernel {ms:.4f} ms, plain "
-            f"{pms:.4f} ms" + (f" (plain at {plain_shape})" if plain_shape
-                               else "")
+        rec = {"shape": str(shape), "ms": ms, "call_ms": call_ms,
+               "plain_ms": pms, "plain_shape": str(plain_shape or shape),
+               **bound(work), "library_ms": lib}
+        log(phase, f"time {name} {shape}: kernel {ms:.4f} ms on the device "
+            f"({call_ms:.4f} ms a call), plain {pms:.4f} ms"
+            + (f" (plain at {plain_shape})" if plain_shape else "")
             + (f", library {lib:.4f} ms" if lib is not None else "")
             + f"; bound {rec['bound_ms']:.4f} ms by {rec['bound_by']} "
             f"({work['ops']} int ops, {work['bytes']} bytes)")
@@ -303,18 +335,50 @@ def timer(phase):
     return timed
 
 
+# The two kernels of padd and of fold_add by path (cuda_curve.PATHS), as
+# they stand in the kernels' JSON line.
+PADD = {"thread": "padd", "group": "padd_group"}
+FOLD = {"thread": "fold_add", "group": "fold_add_group"}
+
+
+def time_paths(phase, name, shape, run, plain_ms, work, rule,
+               plain_shape=None):
+    """Both kernels of a wrapper, run(path), timed by graph_ms in turns
+    (thread, group, group, thread); `rule` is the path the wrapper's rule
+    takes here. Returns {path: record}."""
+    runs = {"thread": [], "group": []}
+    for path in ("thread", "group", "group", "thread"):
+        runs[path].append(graph_ms(lambda: run(path)))
+    ms = {path: statistics.mean(r) for path, r in runs.items()}
+    recs = {path: {"shape": str(shape), "ms": ms[path], "ms_runs": runs[path],
+                   "plain_ms": plain_ms,
+                   "plain_shape": str(plain_shape or shape), **bound(work),
+                   "library_ms": None} for path in runs}
+    faster = min(ms, key=ms.get)
+    log(phase, f"time {name} {shape} on the device: thread "
+        f"{runs['thread']} ms, group {runs['group']} ms; plain "
+        f"{plain_ms:.4f} ms" + (f" at {plain_shape}" if plain_shape else "")
+        + f"; bound {recs['thread']['bound_ms']:.4f} ms by "
+        f"{recs['thread']['bound_by']}; faster: {faster}; the rule takes "
+        f"{rule}" + ("" if rule == faster else " (not the faster)"))
+    return recs
+
+
 # --------------------------------------------------------------------------
 # Phases.
 # --------------------------------------------------------------------------
 
 KERNEL_FUNCTIONS = ("scan_madd_rows_kernel", "scan_madd_kernel",
                     "jac_madd_kernel", "jac_add_kernel", "pmadd_kernel",
-                    "padd_kernel", "window_tail_kernel", "horner_kernel",
+                    "padd_group_kernel", "padd_kernel", "window_tail_kernel",
+                    "horner_kernel", "fold_add_group_kernel",
                     "fold_add_kernel", "digit_hist_kernel",
                     "montmul_chain_kernel")
 
 
 def phase_build():
+    """Builds the kernels and prints each one's ptxas registers, spills and
+    stack frame."""
     from tpu_msm_torch import _build
 
     res = _build.build()
@@ -322,8 +386,9 @@ def phase_build():
         f"{res['seconds']:.1f} s -> {res['lib']}")
     kernel = None
     for line in res["log"].splitlines():
-        if "Compiling entry function" in line:
-            kernel = next(k for k in KERNEL_FUNCTIONS if k in line)
+        if "Compiling entry function" in line or "Function properties" in line:
+            # Lines that follow a device function's header are not a kernel's.
+            kernel = next((k for k in KERNEL_FUNCTIONS if k in line), None)
         elif kernel and ("registers" in line or "spill" in line):
             detail = line.replace("ptxas info    :", "").strip()
             log(1, f"ptxas {kernel}: {detail}")
@@ -370,14 +435,24 @@ def phase_kernels(dev):
     # ---- edge lanes: infinities, P + P, P + (-P), mid-scan sentinels ----
     a_aff, b_aff = edge_affine(dev, 8192, SEED)
     pa, pb = to_proj(dev, a_aff, SEED + 2), to_proj(dev, b_aff, SEED + 3)
-    check("padd", [16, 8192], cc.padd(*pa, *pb), cc.padd_plain(*pa, *pb))
+    # Both padd kernels, at 8192 and at a ragged 8191 (not a multiple of
+    # either kernel's elements a block).
+    for width in (8192, 8191):
+        ops = [c[:, :width].contiguous() for c in (*pa, *pb)]
+        want = cc.padd_plain(*ops)
+        for path, name in PADD.items():
+            check(name, [16, width], cc.padd(*ops, path=path), want)
 
-    # fold_add at (16, 64, 8192): the two batches, rolled per step.
+    # fold_add at (16, 64, 8192): the two batches, rolled per step; both
+    # kernels, and at a ragged 8191 lanes.
     fold_in = [torch.stack([(pa if k % 2 else pb)[i].roll(k, dims=1)
                             for k in range(64)], dim=1).contiguous()
                for i in range(3)]
-    check("fold_add", [16, 64, 8192], cc.fold_add(*fold_in),
-          cc.fold_add_plain(*fold_in))
+    for lanes in (8192, 8191):
+        ops = [c[:, :, :lanes].contiguous() for c in fold_in]
+        want = cc.fold_add_plain(*ops)
+        for path, name in FOLD.items():
+            check(name, [16, 64, lanes], cc.fold_add(*ops, path=path), want)
 
     # scan at (8, 8, 4096): sentinels, repeats (doubling), cancellations.
     xs = [a_aff[0][:, :4096], b_aff[0][:, :4096]]
@@ -459,39 +534,66 @@ def phase_kernels(dev):
     big = [c[:, 1:] for c in
            to_proj(dev, edge_affine(dev, 8192, SEED + 5)[0], SEED + 6)]
 
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
     # fold_add: _sides_batched folds each window's m_pad X(s_b) down to the
-    # fanout, W x fanout lanes; the plain version is timed at 8 steps.
+    # fanout, W x fanout lanes; both kernels, at that shape and, to place
+    # the crossover (cuda_curve.GROUP_BELOW_PER_SM), at 8192 lanes; the
+    # plain version is timed at 8 steps.
     fsteps, fwidth = sh["m_pad"] // sh["fanout"], w * sh["fanout"]
-    fold_main = [tile(c, fsteps * fwidth).reshape(16, fsteps, fwidth)
-                 for c in big]
-    fold_cut = [c[:, :8].contiguous() for c in fold_main]
-    check("fold_add", [16, fsteps, fwidth], cc.fold_add(*fold_main),
-          cc.fold_add_plain(*fold_main))
-    entries["fold_add"].update(timed(
-        "fold_add", [16, fsteps, fwidth], lambda: cc.fold_add(*fold_main),
-        lambda: cc.fold_add_plain(*fold_cut),
-        ec_work(12 * fsteps * fwidth, (fsteps + 1) * fwidth, 48),
-        plain_shape=[16, 8, fwidth]))
-    del fold_main, fold_cut
+    recs = {name: [] for name in FOLD.values()}
+    for width in (fwidth, 8192):
+        fold = [tile(c, fsteps * width).reshape(16, fsteps, width)
+                for c in big]
+        if width == fwidth:  # 8192 lanes were checked on the edge lanes
+            want = cc.fold_add_plain(*fold)
+            for path, name in FOLD.items():
+                check(name, [16, fsteps, width],
+                      cc.fold_add(*fold, path=path), want)
+        cut = [c[:, :8].contiguous() for c in fold]
+        by_path = time_paths(
+            2, "fold_add", [16, fsteps, width],
+            lambda path: cc.fold_add(*fold, path=path),
+            cuda_ms(lambda: cc.fold_add_plain(*cut)),
+            ec_work(12 * fsteps * width, (fsteps + 1) * width, 48),
+            cc.kernel_path(width, sms), plain_shape=[16, 8, width])
+        for path, name in FOLD.items():
+            recs[name].append(by_path[path])
+        del fold, cut
+    for name in FOLD.values():  # the main path's shape first
+        first, *others = recs[name]
+        entries[name].update(first, other_shapes=others)
 
     # padd at every width of the main path: W·(m+1) query adds, the
     # W·lanes lane-carry scan, the W·fanout rolled tree (each lane added to
     # its neighbour); and at W and 1, the widths of the chain that
     # window_tail and horner replace (at width 1 the add is a doubling).
-    def padd_at(width, timed_too):
+    # Both kernels checked at every width; both timed at the three wide
+    # widths, at 8192 (below the crossover) and at the per-window route's
+    # rolled tree (2048).
+    recs = {name: [] for name in PADD.values()}
+    for width, timed_too in ((w * (m + 1), True), (w * lanes, True),
+                             (w * sh["fanout"], True), (8192, True),
+                             (2048, True), (w, False), (1, False)):
         ops = [tile(c, width) for c in big]
         ops += [o.roll(1, dims=1).contiguous() for o in ops]
-        check("padd", [16, width], cc.padd(*ops), cc.padd_plain(*ops))
+        want = cc.padd_plain(*ops)
+        for path, name in PADD.items():
+            check(name, [16, width], cc.padd(*ops, path=path), want)
         if not timed_too:
-            return None
-        return timed("padd", [16, width], lambda: cc.padd(*ops),
-                     lambda: cc.padd_plain(*ops),
-                     ec_work(12 * width, width, 96 + 48))
-
-    first, *others = (r for r in (padd_at(width, t) for width, t in (
-        (w * (m + 1), True), (w * lanes, True), (w * sh["fanout"], False),
-        (w, False), (1, False))) if r is not None)
+            continue
+        by_path = time_paths(
+            2, "padd", [16, width], lambda path: cc.padd(*ops, path=path),
+            cuda_ms(lambda: cc.padd_plain(*ops)),
+            ec_work(12 * width, width, 96 + 48), cc.kernel_path(width, sms))
+        for path, name in PADD.items():
+            recs[name].append(by_path[path])
+    # padd_kernel's row leads with the query adds' width, padd_group_kernel's
+    # with the per-window route's rolled tree's (2048).
+    first, *others = recs["padd"]
     entries["padd"].update(first, other_shapes=others)
+    *others, first = recs["padd_group"]
+    entries["padd_group"].update(first, other_shapes=others)
     phase_tail(dev, entries, sh, big)
     return entries
 
@@ -631,16 +733,21 @@ def bench_inputs(n):
 
 
 def counters():
-    """({kernel name: wrapper}, [plain versions]) of every kernel."""
+    """({kernel name: (wrapper, counter attribute)}, [plain versions]) of
+    every kernel. padd.launches counts both padd kernels, padd_group_kernel's
+    own are padd.group_launches; fold_add's likewise."""
     from tpu_msm_torch.ops import cuda_curve as cc
     from tpu_msm_torch.ops import hist
 
-    kernels = {"scan_madd": cc.scan_madd, "padd": cc.padd,
-               "window_tail": cc.window_tail, "horner": cc.horner,
-               "fold_add": cc.fold_add, "digit_hist": hist.digit_hist,
-               "pmadd": cc.pmadd, "jac_madd": cc.jac_madd,
-               "jac_add": cc.jac_add, "scan_madd_rows": cc.scan_madd_rows,
-               "montmul_chain": cc.montmul_chain}
+    kernels = {name: (fn, "launches") for name, fn in (
+        ("scan_madd", cc.scan_madd), ("padd", cc.padd),
+        ("window_tail", cc.window_tail), ("horner", cc.horner),
+        ("fold_add", cc.fold_add), ("digit_hist", hist.digit_hist),
+        ("pmadd", cc.pmadd), ("jac_madd", cc.jac_madd),
+        ("jac_add", cc.jac_add), ("scan_madd_rows", cc.scan_madd_rows),
+        ("montmul_chain", cc.montmul_chain))}
+    kernels["padd_group"] = (cc.padd, "group_launches")
+    kernels["fold_add_group"] = (cc.fold_add, "group_launches")
     plains = [cc.scan_madd_plain, cc.padd_plain, cc.window_tail_plain,
               cc.horner_plain, cc.fold_add_plain, hist.digit_hist_plain,
               cc.pmadd_plain, cc.jac_madd_plain, cc.jac_add_plain,
@@ -650,21 +757,24 @@ def counters():
 
 def reset_counts():
     kernels, plains = counters()
-    for fn in kernels.values():
-        fn.launches = 0
+    for fn, attr in kernels.values():
+        setattr(fn, attr, 0)
     for fn in plains:
         fn.calls = 0
 
 
 MAIN_KERNELS = ("scan_madd", "padd", "fold_add", "digit_hist", "window_tail",
                 "horner")
+# Kernels whose wrapper counts a second kernel's launches too: its own are
+# the wrapper's count less the second's.
+SHARED_COUNTS = {"padd": "padd_group", "fold_add": "fold_add_group"}
 
 
 def read_counts(phase, path_kernels):
     """The counts since reset_counts(); raises unless every kernel of the
     path launched and no plain version ran."""
     kernels, plains = counters()
-    launches = {k: fn.launches for k, fn in kernels.items()}
+    launches = {k: getattr(fn, attr) for k, (fn, attr) in kernels.items()}
     calls = {fn.__name__: fn.calls for fn in plains}
     log(phase, f"kernel launches {launches}; plain calls {calls}")
     missing = [k for k in path_kernels if launches[k] == 0]
@@ -715,8 +825,10 @@ def phase_e2e(dev, inputs, expected):
     log(3, f"msm_device n=2^20 on device-resident inputs: {dev_ms:.3f} ms "
         f"-> {(1 << 20) / dev_ms * 1e3:.1f} points/s")
     # One call's launches and peak memory: ceil(W / G) scan launches, the
-    # wide padd calls (lane-carry scan, query adds, rolled tree) and one
-    # launch of each tail kernel.
+    # wide padd calls (lane-carry scan, query adds, rolled tree; each on the
+    # kernel kernel_path gives its width) and one launch of each tail kernel.
+    from tpu_msm_torch.ops import cuda_curve as cc
+
     sh = main_shapes(dev)
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
@@ -726,16 +838,28 @@ def phase_e2e(dev, inputs, expected):
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     one = read_counts(3, MAIN_KERNELS)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    padd_calls = {  # width: launches
+        sh["w"] * sh["lanes"]: (sh["lanes"] - 1).bit_length(),
+        sh["w"] * (sh["m"] + 1): 1,
+        sh["w"] * sh["fanout"]: (min(sh["m_pad"], sh["fanout"]) - 1)
+        .bit_length()}
+    paths = {width: cc.kernel_path(width, sms) for width in padd_calls}
+    fold_path = cc.kernel_path(sh["w"] * sh["fanout"], sms)
     want = {"scan_madd": -(-sh["w"] // sh["g"]), "window_tail": 1,
-            "horner": 1,
-            "padd": ((sh["lanes"] - 1).bit_length() + 1
-                     + (min(sh["m_pad"], sh["fanout"]) - 1).bit_length())}
+            "horner": 1, "padd": sum(padd_calls.values()),
+            "padd_group": sum(k for width, k in padd_calls.items()
+                              if paths[width] == "group"),
+            "fold_add": 1, "fold_add_group": int(fold_path == "group")}
     if any(one[k] != v for k, v in want.items()):
         raise AssertionError(f"launches of one msm_device call at 2^20: "
                              f"{one}, expected {want}")
     log(3, f"msm_device n=2^20: G = {sh['g']} of {sh['w']} windows a scan "
         f"launch; launches {json.dumps(one)} (scan {one['scan_madd']}, padd "
-        f"family {one['padd']} + {one['window_tail'] + one['horner']})")
+        f"{one['padd']}: {one['padd'] - one['padd_group']} padd_kernel, "
+        f"{one['padd_group']} padd_group_kernel, by width "
+        f"{json.dumps({w: [k, paths[w]] for w, k in padd_calls.items()})}; "
+        f"fold_add {fold_path}; tail {one['window_tail'] + one['horner']})")
     log(3, f"msm_device n=2^20 peak device memory: max_memory_allocated "
         f"{peak / 2**20:.1f} MiB, {(peak - base) / 2**20:.1f} MiB above its "
         f"inputs")
@@ -848,11 +972,23 @@ def phase_window_kernels(dev, entries):
     for width in (16384, 32769, 2048):
         ops = [tile(c, width) for c in big]
         ops += [o.roll(1, dims=1).contiguous() for o in ops]
-        check("padd", [16, width], cc.padd(*ops), cc.padd_plain(*ops))
-    # fold_add: ec_reduce folds the 32768 X(s_b) down to 2048 lanes.
+        want = cc.padd_plain(*ops)
+        for path, name in PADD.items():
+            check(name, [16, width], cc.padd(*ops, path=path), want)
+    # fold_add: ec_reduce folds the 32768 X(s_b) down to 2048 lanes; both
+    # kernels checked and timed.
     fold = [tile(c, 16 * 2048).reshape(16, 16, 2048) for c in big]
-    check("fold_add", [16, 16, 2048], cc.fold_add(*fold),
-          cc.fold_add_plain(*fold))
+    want = cc.fold_add_plain(*fold)
+    for path, name in FOLD.items():
+        check(name, [16, 16, 2048], cc.fold_add(*fold, path=path), want)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    by_path = time_paths(2, "fold_add", [16, 16, 2048],
+                         lambda path: cc.fold_add(*fold, path=path),
+                         cuda_ms(lambda: cc.fold_add_plain(*fold)),
+                         ec_work(12 * 16 * 2048, 17 * 2048, 48),
+                         cc.kernel_path(2048, sms))
+    for path, name in FOLD.items():
+        entries[name]["other_shapes"].append(by_path[path])
     # digit_hist on sorted digits: every warp sees runs of equal values.
     m = 1 << 15
     gen = torch.Generator(device=dev).manual_seed(SEED + 13)
@@ -893,8 +1029,9 @@ def phase_window(dev, inputs, expected, fused_ms):
                                  f": {got} != native {expected[20]}")
         log(4, f"per-window msm n=2^20 segment_starts={cfg.segment_starts} "
             f"== native engine (affine, exact), {dt:.4f} s")
-    launches = read_counts(4, ("pmadd", "padd", "fold_add", "digit_hist",
-                               "window_tail", "horner"))
+    launches = read_counts(4, ("pmadd", "padd", "padd_group", "fold_add",
+                               "fold_add_group", "digit_hist", "window_tail",
+                               "horner"))
     if launches["scan_madd"]:
         raise AssertionError("the per-window path ran the fused scan")
 
@@ -1123,9 +1260,11 @@ PC = "tpu_msm/ops/pallas_curve.py"
 SOURCES = {
     "scan_madd": (EC, f"{PC}:799", "main"),
     "padd": (EC, f"{PC}:1009", "main"),
+    "padd_group": (EC, f"{PC}:1009", "per_window"),
     "window_tail": (EC, f"{PC}:1009", "main"),
     "horner": (EC, f"{PC}:1009", "main"),
     "fold_add": (EC, f"{PC}:953", "main"),
+    "fold_add_group": (EC, f"{PC}:953", "per_window"),
     "digit_hist": ("tpu_msm_torch/csrc/hist.cu",
                    "tpu_msm/ops/hist.py:171, tpu_msm/ops/hist.py:107", "main"),
     "pmadd": (EC, f"{PC}:988", "per_window"),
@@ -1161,32 +1300,49 @@ def main() -> int:
 
     from tpu_msm_torch.bindings import native
 
+    t0 = time.perf_counter()
+
+    def lap(phase):
+        log(phase, f"phase done {time.perf_counter() - t0:.1f} s into the run")
+
     phase_build()
+    lap(1)
     entries = phase_kernels(dev)
     entries.update(phase_new_kernels(dev))
     phase_window_kernels(dev, entries)
+    lap(2)
     inputs = {log_n: bench_inputs(1 << log_n) for log_n in (12, 20)}
     expected = {}
     for log_n, (px, py, sl) in inputs.items():
-        t0 = time.perf_counter()
+        t1 = time.perf_counter()
         expected[log_n] = native.msm(px, py, sl)
-        log(3, f"native engine n=2^{log_n}: {time.perf_counter() - t0:.3f} s")
+        log(3, f"native engine n=2^{log_n}: {time.perf_counter() - t1:.3f} s")
     launches = {}
     launches["main"], fused_ms = phase_e2e(dev, inputs, expected)
+    lap(3)
     launches["per_window"] = phase_window(dev, inputs, expected, fused_ms)
+    lap(4)
     launches["cli"] = phase_cli()
+    lap(5)
     phase_montmul(dev, entries)
     launches["roofline"] = phase_roofline(dev)
+    lap(7)
     more = {log_n: bench_inputs(1 << log_n) for log_n in (16, 18)}
     for log_n, (px, py, sl) in more.items():
         expected[log_n] = native.msm(px, py, sl)
     more[20] = inputs[20]
     phase_glv(dev, more, expected)
+    lap(8)
     phase_tuning(dev, more, expected)
+    lap(9)
     phase_profile(dev, more)
+    lap(6)
 
     kernels = [{"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches[path][name],
+                "replaces": replaces,
+                "launches": launches[path][name] - (
+                    launches[path][SHARED_COUNTS[name]]
+                    if name in SHARED_COUNTS else 0),
                 "path": PATHS[path], **entries[name]}
                for name, (source, replaces, path) in SOURCES.items()]
     print(json.dumps({"kernels": kernels}))

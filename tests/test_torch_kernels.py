@@ -307,6 +307,62 @@ def test_wrappers_run_plain_on_cpu_tensors():
         before[0] + 1, before[1])
 
 
+# The main path's widths at 2^20 with the tuned row (16 windows, 8192
+# lanes, 65536 buckets, fanout 1024), the per-window route's fold (2048
+# lanes) and the 8192 elements below the crossover that chip_smoke.py
+# times, on an H100's 132 SMs, and the kernel the note at
+# cuda_curve.GROUP_BELOW_PER_SM gives each.
+H100_SMS = 132
+MAIN_PATHS = [("padd", 16 * 65537, "thread"), ("padd", 16 * 8192, "thread"),
+              ("padd", 16 * 1024, "thread"), ("padd", 8192, "group"),
+              ("padd", 16, "group"), ("padd", 1, "group"),
+              ("fold_add", 16 * 1024, "thread"), ("fold_add", 8192, "group"),
+              ("fold_add", 2048, "group")]
+
+
+@pytest.mark.parametrize("name,width,path", MAIN_PATHS)
+def test_kernel_path_at_main_path_widths(name, width, path):
+    """padd and fold_add take their kernel from the one rule."""
+    assert name in ("padd", "fold_add")
+    assert cuda_curve.kernel_path(width, H100_SMS) == path
+
+
+@pytest.mark.parametrize("sms", [H100_SMS, 114, 78, 1])
+def test_kernel_path_crossover(sms):
+    """The rule changes kernel exactly at its crossover in elements an SM,
+    whatever the card's SM count."""
+    per_sm = cuda_curve.GROUP_BELOW_PER_SM
+    assert cuda_curve.kernel_path(per_sm * sms - 1, sms) == "group"
+    assert cuda_curve.kernel_path(per_sm * sms, sms) == "thread"
+
+
+@pytest.mark.parametrize("path", [None, "thread", "group"])
+def test_kernel_path_on_cpu_runs_plain(path):
+    """On CPU tensors either path of padd and fold_add runs the plain
+    version and counts no launch."""
+    rng = np.random.RandomState(18)
+    p3 = [_t(a) for a in _proj_limbs(rng, _points(rng, 8))]
+    steps = [torch.stack([a, a], dim=1) for a in p3]  # (16, 2, 8)
+    for name, ops in (("padd", (*p3, *p3)), ("fold_add", steps)):
+        kernel = getattr(cuda_curve, name)
+        plain = getattr(cuda_curve, name + "_plain")
+        before = (plain.calls, kernel.launches, kernel.group_launches)
+        got = kernel(*ops, path=path)
+        want = plain(*ops)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        assert (plain.calls, kernel.launches, kernel.group_launches) == (
+            before[0] + 2, *before[1:])
+
+
+def test_kernel_paths_reject_unknown_path():
+    a = torch.zeros((16, 2), dtype=torch.int32)
+    with pytest.raises(ValueError, match="path"):
+        cuda_curve.padd(a, a, a, a, a, a, path="warp")
+    b = torch.zeros((16, 2, 2), dtype=torch.int32)
+    with pytest.raises(ValueError, match="path"):
+        cuda_curve.fold_add(b, b, b, path="warp")
+
+
 def test_wrappers_reject_other_devices():
     """A tensor that is neither on the CPU nor on a CUDA device raises: no
     wrapper falls back to the plain version."""
@@ -340,27 +396,25 @@ def _edge_proj_on(dev, rng, n):
 
 
 @pytest.mark.cuda
-def test_padd_kernel_matches_plain(cuda):
-    rng = np.random.RandomState(21)
-    p3, q3 = _edge_proj_on(cuda, rng, 1000)  # not a multiple of the block
-    got = cuda_curve.padd(*p3, *q3)
-    want = cuda_curve.padd_plain(*p3, *q3)
-    torch.cuda.synchronize()
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
-    one = cuda_curve.padd(*(a[:, :1].contiguous() for a in (*p3, *q3)))
-    assert all(torch.equal(g, w[:, :1]) for g, w in zip(one, want))
-
-
-@pytest.mark.cuda
-def test_fold_add_kernel_matches_plain(cuda):
+@pytest.mark.parametrize("path", cuda_curve.PATHS)
+@pytest.mark.parametrize("lanes", [300, 1])
+def test_fold_add_kernel_matches_plain(cuda, lanes, path):
+    """Both fold_add kernels over six steps that alternate the two edge
+    batches, so that a lane's chain doubles (Q == P), cancels (Q == -P) and
+    meets infinities; 300 lanes fill no whole block of either kernel."""
     rng = np.random.RandomState(22)
     cols = [_edge_proj_on(cuda, rng, 300) for _ in range(3)]
-    stacked = [torch.stack([c[h][i] for c in cols for h in (0, 1)], dim=1)
-               for i in range(3)]  # (16, 6, 300)
-    got = cuda_curve.fold_add(*stacked)
+    stacked = [torch.stack([c[h][i] for c in cols for h in (0, 1)],
+                           dim=1)[:, :, :lanes].contiguous()
+               for i in range(3)]  # (16, 6, lanes)
+    before = (cuda_curve.fold_add.launches,
+              cuda_curve.fold_add.group_launches)
+    got = cuda_curve.fold_add(*stacked, path=path)
     want = cuda_curve.fold_add_plain(*stacked)
     torch.cuda.synchronize()
+    assert (cuda_curve.fold_add.launches,
+            cuda_curve.fold_add.group_launches) == (
+        before[0] + 1, before[1] + (path == "group"))
     for g, w in zip(got, want):
         assert torch.equal(g, w)
 
@@ -414,12 +468,18 @@ def _edge_affine_on(dev, rng, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["pmadd", "jac_madd", "jac_add"])
-def test_new_elementwise_kernels_match_plain(cuda, name):
-    """pmadd, jac_madd and jac_add on the edge pairs at 1000 lanes (not a
-    multiple of the block) and at one lane, bit for bit."""
+@pytest.mark.parametrize("name,path", [("padd", "thread"), ("padd", "group"),
+                                       ("pmadd", None), ("jac_madd", None),
+                                       ("jac_add", None)])
+def test_elementwise_kernels_match_plain(cuda, name, path):
+    """padd (both kernels), pmadd, jac_madd and jac_add on the edge pairs
+    (infinity on either side, P == Q, P == -Q) at 1000 lanes (not a
+    multiple of either block) and at one lane, bit for bit."""
     rng = np.random.RandomState(25)
-    if name == "pmadd":
+    if name == "padd":
+        p3, q3 = _edge_proj_on(cuda, rng, 1000)
+        ops = (*p3, *q3)
+    elif name == "pmadd":
         p3, _ = _edge_proj_on(cuda, rng, 1000)
         ops = (*p3, *_edge_affine_on(cuda, rng, 1000)[1])
     elif name == "jac_madd":
@@ -430,12 +490,15 @@ def test_new_elementwise_kernels_match_plain(cuda, name):
         ops = (*pj, *qj)
     kernel = getattr(cuda_curve, name)
     plain = getattr(cuda_curve, name + "_plain")
+    run = (lambda *a: kernel(*a, path=path)) if path else kernel
     before = kernel.launches
-    got, want = kernel(*ops), plain(*ops)
+    groups = cuda_curve.padd.group_launches
+    got, want = run(*ops), plain(*ops)
     torch.cuda.synchronize()
     assert kernel.launches == before + 1
+    assert cuda_curve.padd.group_launches == groups + (path == "group")
     assert all(torch.equal(g, w) for g, w in zip(got, want))
-    one = kernel(*(a[:, :1].contiguous() for a in ops))
+    one = run(*(a[:, :1].contiguous() for a in ops))
     assert all(torch.equal(g, w[:, :1]) for g, w in zip(one, want))
 
 

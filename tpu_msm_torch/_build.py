@@ -102,9 +102,11 @@ def load() -> ctypes.CDLL:
             signatures = {
                 "tpu_msm_scan_madd": [vp, vp, vp, i32, i32, i32, vp],
                 "tpu_msm_padd": [vp] * 9 + [i64, vp],
+                "tpu_msm_padd_group": [vp] * 9 + [i64, vp],
                 "tpu_msm_window_tail": [vp] * 9 + [i32, i32, i32, vp],
                 "tpu_msm_horner": [vp] * 6 + [i32, i32, vp],
                 "tpu_msm_fold_add": [vp] * 6 + [i32, i32, vp],
+                "tpu_msm_fold_add_group": [vp] * 6 + [i32, i32, vp],
                 "tpu_msm_digit_hist": [vp, i64, vp, i64, vp],
                 "tpu_msm_pmadd": [vp] * 8 + [i64, vp],
                 "tpu_msm_jac_madd": [vp] * 8 + [i64, vp],

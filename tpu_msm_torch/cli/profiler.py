@@ -188,6 +188,10 @@ def _check_inputs(device, lanes: int, seed: int = 5150):
     return p, q, [points() for _ in range(3)]
 
 
+# The route name's suffix for each kernel path of padd and fold_add.
+_GROUP = {"thread": "", "group": "_group"}
+
+
 def _check_routes(device, lanes: int = CHECK_LANES):
     """Every kernel route on `device` against its plain version (bit for
     bit) and against the curve-level ops (projective equality). Returns
@@ -218,8 +222,9 @@ def _check_routes(device, lanes: int = CHECK_LANES):
     check("pmadd", cc.pmadd(*args), cc.pmadd_plain(*args), curve.proj_eq,
           curve.proj_madd(p, q_aff))
     args = (*p, *q)
-    check("padd", cc.padd(*args), cc.padd_plain(*args), curve.proj_eq,
-          curve.proj_add(p, q))
+    for path in cc.PATHS:
+        check("padd" + _GROUP[path], cc.padd(*args, path=path),
+              cc.padd_plain(*args), curve.proj_eq, curve.proj_add(p, q))
     args = (*pj, *q_aff)
     check("jac_madd", cc.jac_madd(*args), cc.jac_madd_plain(*args),
           curve.jac_eq, curve.jac_add_affine(pj, q_aff))
@@ -255,8 +260,9 @@ def _check_routes(device, lanes: int = CHECK_LANES):
     acc = curve.proj_infinity((lanes,), device)
     for pt in doubled:
         acc = curve.proj_add(acc, pt)
-    check("fold_add", cc.fold_add(bx, by, bz), cc.fold_add_plain(bx, by, bz),
-          curve.proj_eq, acc)
+    for path in cc.PATHS:
+        check("fold_add" + _GROUP[path], cc.fold_add(bx, by, bz, path=path),
+              cc.fold_add_plain(bx, by, bz), curve.proj_eq, acc)
 
     # digit_hist through both segment-start options, against searchsorted.
     m = 1 << 15
@@ -291,13 +297,16 @@ def check_kernels(device="cuda") -> int:
         cc.jac_add, cc.fold_add, hist.digit_hist)}
     for f in counters.values():
         f.launches = 0
+    cc.padd.group_launches = cc.fold_add.group_launches = 0
     failed = _check_routes(device)
     torch.cuda.synchronize(device)
     for route, bad in failed.items():
         log.info("kernel %-22s %s", route,
                  "OK" if not bad else "MISMATCH (" + ", ".join(bad) + ")")
-    log.info("kernel launches %s",
-             json.dumps({k: f.launches for k, f in counters.items()}))
+    launches = {k: f.launches for k, f in counters.items()}
+    launches["padd_group"] = cc.padd.group_launches
+    launches["fold_add_group"] = cc.fold_add.group_launches
+    log.info("kernel launches %s", json.dumps(launches))
     bad = [r for r, b in failed.items() if b]
     if bad:
         log.error("kernel check FAILED: %s", ", ".join(bad))

@@ -147,9 +147,12 @@ __device__ __forceinline__ Fp fp_mont_mul(const Fp& a, const Fp& b) {
 // fp_mont_mul out of line: one copy of its code in the kernel however many
 // products call it. A step of eleven inlined products (the scan's mixed add)
 // outgrows the instruction caches; called, it runs faster on the H100
-// (PERF.md §6). proj_madd, and so every mixed-add kernel, calls it. The
-// operands pass by value, in registers: by reference they would go through
-// a stack frame in local memory.
+// (PERF.md §6). proj_madd and proj_add call it, and so every kernel that
+// runs one thread an add (the scans, pmadd, padd_kernel, fold_add_kernel);
+// the cooperative proj_add_group inlines its two products. The operands
+// pass by value, in registers: by reference they would go through a stack
+// frame in local memory. Two or three products interleaved in one call
+// were no faster on the H100 (PERF.md §6).
 static __device__ __noinline__ Fp fp_mont_mul_outlined(Fp a, Fp b) {
   return fp_mont_mul(a, b);
 }
@@ -167,14 +170,15 @@ __device__ __forceinline__ Proj proj_infinity() {
 }
 
 // Complete projective P + Q (RCB Algorithm 7, a = 0, b3 = 9), the exact
-// field-op sequence of ec_rows.proj_add.
+// field-op sequence of ec_rows.proj_add. Its twelve products call
+// fp_mont_mul_outlined.
 __device__ __forceinline__ Proj proj_add(const Proj& p, const Proj& q) {
-  Fp t0 = fp_mont_mul(p.x, q.x);
-  Fp t1 = fp_mont_mul(p.y, q.y);
-  Fp t2 = fp_mont_mul(p.z, q.z);
-  Fp a = fp_mont_mul(fp_add(p.x, p.y), fp_add(q.x, q.y));
-  Fp b = fp_mont_mul(fp_add(p.x, p.z), fp_add(q.x, q.z));
-  Fp c = fp_mont_mul(fp_add(p.y, p.z), fp_add(q.y, q.z));
+  Fp t0 = fp_mont_mul_outlined(p.x, q.x);
+  Fp t1 = fp_mont_mul_outlined(p.y, q.y);
+  Fp t2 = fp_mont_mul_outlined(p.z, q.z);
+  Fp a = fp_mont_mul_outlined(fp_add(p.x, p.y), fp_add(q.x, q.y));
+  Fp b = fp_mont_mul_outlined(fp_add(p.x, p.z), fp_add(q.x, q.z));
+  Fp c = fp_mont_mul_outlined(fp_add(p.y, p.z), fp_add(q.y, q.z));
   Fp t3 = fp_sub(fp_sub(a, t0), t1);
   Fp t4 = fp_sub(fp_sub(c, t1), t2);
   Fp y3t = fp_sub(fp_sub(b, t0), t2);
@@ -184,9 +188,9 @@ __device__ __forceinline__ Proj proj_add(const Proj& p, const Proj& q) {
   t1 = fp_sub(t1, t2);
   Fp y3p = fp_mul9(y3t);
   Proj r;
-  r.x = fp_sub(fp_mont_mul(t3, t1), fp_mont_mul(t4, y3p));
-  r.y = fp_add(fp_mont_mul(t1, z3t), fp_mont_mul(y3p, t0));
-  r.z = fp_add(fp_mont_mul(z3t, t4), fp_mont_mul(t0, t3));
+  r.x = fp_sub(fp_mont_mul_outlined(t3, t1), fp_mont_mul_outlined(t4, y3p));
+  r.y = fp_add(fp_mont_mul_outlined(t1, z3t), fp_mont_mul_outlined(y3p, t0));
+  r.z = fp_add(fp_mont_mul_outlined(z3t, t4), fp_mont_mul_outlined(t0, t3));
   return r;
 }
 
@@ -403,15 +407,31 @@ __device__ __forceinline__ Jac jac_add(const Jac& p, const Jac& q) {
                       fp_is_zero(rhalf));
 }
 
-// Element i of a (16, plane) u16-row array -> words; `stride` is the plane
-// size (distance between two limb rows).
+// Word k of element i of a (16, plane) u16-row array: limb rows 2k and
+// 2k + 1; `stride` is the plane size (distance between two limb rows).
+__device__ __forceinline__ uint32_t load_u16_word(
+    const uint32_t* __restrict__ rows, size_t stride, size_t i, int k) {
+  return (rows[(2 * k) * stride + i] & 0xffffu) |
+         (rows[(2 * k + 1) * stride + i] << 16);
+}
+
+// Element i of a (16, plane) u16-row array -> words.
 __device__ __forceinline__ Fp load_u16_rows(const uint32_t* __restrict__ rows,
                                             size_t stride, size_t i) {
   Fp r;
 #pragma unroll
-  for (int k = 0; k < 8; ++k)
-    r.w[k] = (rows[(2 * k) * stride + i] & 0xffffu) |
-             (rows[(2 * k + 1) * stride + i] << 16);
+  for (int k = 0; k < 8; ++k) r.w[k] = load_u16_word(rows, stride, i, k);
+  return r;
+}
+
+// The element whose word r rank r of the caller's group of kAddGroup lanes
+// holds in `w`, on every lane of the group: a group loads an element with
+// one word a lane (load_u16_word at k = rank) and eight exchanges, not
+// eight words a lane.
+__device__ __forceinline__ Fp fp_from_group_words(unsigned mask, uint32_t w) {
+  Fp r;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) r.w[k] = __shfl_sync(mask, w, k, kAddGroup);
   return r;
 }
 
@@ -423,6 +443,20 @@ __device__ __forceinline__ void store_u16_rows(uint32_t* __restrict__ rows,
     rows[(2 * k) * stride + i] = a.w[k] & 0xffffu;
     rows[(2 * k + 1) * stride + i] = a.w[k] >> 16;
   }
+}
+
+// store_u16_rows by a group of kAddGroup lanes that all hold `a`: rank r
+// writes limb rows 2r and 2r + 1 (word r), so each lane stores two rows, not
+// sixteen, and one store of a warp covers eight rows of its four elements.
+static_assert(kAddGroup == 8, "one word of the eight per rank");
+__device__ __forceinline__ void store_u16_rows_rank(uint32_t* __restrict__ rows,
+                                                    size_t stride, size_t i,
+                                                    const Fp& a, int rank) {
+  uint32_t w = a.w[0];
+#pragma unroll
+  for (int k = 1; k < 8; ++k) w = rank == k ? a.w[k] : w;
+  rows[(2 * rank) * stride + i] = w & 0xffffu;
+  rows[(2 * rank + 1) * stride + i] = w >> 16;
 }
 
 }  // namespace bn254

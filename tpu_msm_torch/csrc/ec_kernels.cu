@@ -4,12 +4,14 @@
 // Replace the Pallas TPU kernels of tpu_msm/ops/pallas_curve.py:
 //   tpu_msm_scan_madd       <- scan_madd_packed_u16_f15d (and its aliases
 //                              scan_madd_packed_u16, _u16_f15, _u16_mxu)
-//   tpu_msm_padd            <- padd_packed
+//   tpu_msm_padd,           <- padd_packed
+//   tpu_msm_padd_group
 //   tpu_msm_window_tail     <- padd_packed, as tpu_msm/ops/pippenger.py
 //                              calls it for M·X(n) - sum X(s_b)
 //   tpu_msm_horner          <- padd_packed, as pippenger.horner_fold calls
 //                              it (curve.proj_double is proj_add(p, p))
-//   tpu_msm_fold_add        <- fold_add_packed
+//   tpu_msm_fold_add,       <- fold_add_packed
+//   tpu_msm_fold_add_group
 //   tpu_msm_pmadd           <- pmadd_packed
 //   tpu_msm_jac_madd        <- madd_packed
 //   tpu_msm_jac_add         <- add_packed
@@ -49,14 +51,49 @@
 // product's is measured by montmul_chain on one lane), not by the card's
 // throughput; on the H100 an add takes about 4.4 product latencies.
 //
-// The elementwise kernels (padd, pmadd, jac_madd, jac_add) read their
-// operands once and write the sum once: 320-384 bytes of u16 rows in and
-// 192 out per element against 11-20 Montgomery products, so they are bound
-// by the multiplies too once N fills the card; at the per-window path's
-// 16384 lanes a pmadd launch is 128 blocks, one wave. The Jacobian adders
-// compute their doubling fallback only on the lanes that take it (P == Q),
-// a rare divergent branch, where the TPU kernels computed it on every lane
-// and selected.
+// padd and fold_add (the sides stage's reduction: the lane-carry scan, the
+// query adds, the rolled tree and the fold). Each computes proj_add, and
+// what bounds it depends on the width.
+// - Widths that fill the card (the query adds at W·(m + 1) = 1,048,576
+//   elements, the lane scan at W·lanes = 131,072): the multiplies, read
+//   once and written once per element (384 bytes of u16 rows in, 192 out,
+//   against twelve products). One thread an element (padd_kernel,
+//   fold_add_kernel), the twelve products through fp_mont_mul_outlined as
+//   in the scan, __launch_bounds__(kThreads, kAddMinBlocks). ptxas for
+//   sm_90a (CUDA 12.8): padd_kernel 144 -> 122 registers, fold_add_kernel
+//   142 -> 116, no spills or stack before or after, so 4 blocks (16 warps)
+//   an SM, not 3. (jac_add_kernel 168 and jac_madd_kernel 140 registers,
+//   no spills: they inline fp_mont_mul and are unchanged.)
+// - Widths that leave the card short of warps (the rolled tree at
+//   W·fanout = 16,384 elements, the fold's 16,384 chains of 64 adds: 128
+//   blocks, one warp a scheduler): latency. One thread an element takes
+//   about 12.5 µs an add at any width up to there. The group kernels
+//   (padd_group_kernel, fold_add_group_kernel) give each element to eight
+//   lanes calling proj_add_group: eight times the warps, and a chain waits
+//   on two products an add, not twelve, but every lane repeats the linear
+//   steps, the selects and the exchanges, about 2.2 times the instructions
+//   of one thread an element. So the group kernels win only well below a
+//   full card: cuda_curve.kernel_path takes them below GROUP_BELOW_PER_SM
+//   (80) elements an SM, the crossover measured for both (about 10,700
+//   on 132 SMs). The main path's widths all lie above it; the per-window
+//   route's rolled tree (2048) and fold (2048 lanes) below.
+// - The group kernels' loads: rank r loads word r of each coordinate (two
+//   limb rows) and the group exchanges the words by __shfl_sync, six loads
+//   a lane for a point, not 48; rank r stores word r. Against every lane
+//   loading the whole point, this took both group kernels 10-25 % faster,
+//   and the fold's prefetch of the next step's operand to three registers,
+//   which ended fold_add_group_kernel's 60-byte spill (128 -> 113
+//   registers; padd_group_kernel 111 -> 98).
+// - Two or three products interleaved in one out-of-line call (more
+//   independent work for the latency-bound widths) did not help: the fold
+//   at 16,384 lanes 1-4 % faster, the lane scan at 131,072 2-5 % slower.
+//
+// pmadd, jac_madd and jac_add read their operands once and write the sum
+// once, 11-20 products an element, bound by the multiplies once N fills
+// the card; at the per-window path's 16384 lanes a pmadd launch is 128
+// blocks, one wave. The Jacobian adders compute their doubling fallback
+// only on the lanes that take it (P == Q), a rare divergent branch, where
+// the TPU kernels computed it on every lane and selected.
 //
 // The kernels allocate nothing and do not synchronise. Each C entry launches
 // on the caller's stream and returns cudaGetLastError().
@@ -73,8 +110,12 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kScanMinBlocks = 4;
+constexpr int kAddMinBlocks = 4;
+constexpr int kGroupMinBlocks = 4;
 // The tail kernels' blocks: one warp's first kAddGroup lanes.
 constexpr unsigned kGroupMask = (1u << kAddGroup) - 1u;
+// The group kernels' blocks: kThreads / kAddGroup groups, whole warps.
+constexpr unsigned kWarpMask = 0xffffffffu;
 
 // Inclusive per-lane prefix sum over the step axis by complete mixed add,
 // for a group of windows. gx, gy: (G, 8, steps, lanes) packed affine words,
@@ -106,8 +147,21 @@ __global__ void __launch_bounds__(kThreads, kScanMinBlocks)
   }
 }
 
-// Elementwise complete projective add of (16, n) u16-row operands.
-__global__ void __launch_bounds__(kThreads)
+// Element i of three (16, stride) u16-row coordinate arrays.
+__device__ __forceinline__ Proj load_proj(const uint32_t* __restrict__ x,
+                                          const uint32_t* __restrict__ y,
+                                          const uint32_t* __restrict__ z,
+                                          size_t stride, size_t i) {
+  Proj p;
+  p.x = load_u16_rows(x, stride, i);
+  p.y = load_u16_rows(y, stride, i);
+  p.z = load_u16_rows(z, stride, i);
+  return p;
+}
+
+// Elementwise complete projective add of (16, n) u16-row operands, one
+// thread an element: the path for widths that fill the card.
+__global__ void __launch_bounds__(kThreads, kAddMinBlocks)
     padd_kernel(const uint32_t* __restrict__ ax, const uint32_t* __restrict__ ay,
                 const uint32_t* __restrict__ az, const uint32_t* __restrict__ bx,
                 const uint32_t* __restrict__ by, const uint32_t* __restrict__ bz,
@@ -115,17 +169,64 @@ __global__ void __launch_bounds__(kThreads)
                 uint32_t* __restrict__ oz, long long n) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  Proj p, q;
-  p.x = load_u16_rows(ax, n, i);
-  p.y = load_u16_rows(ay, n, i);
-  p.z = load_u16_rows(az, n, i);
-  q.x = load_u16_rows(bx, n, i);
-  q.y = load_u16_rows(by, n, i);
-  q.z = load_u16_rows(bz, n, i);
-  const Proj r = proj_add(p, q);
+  const Proj r =
+      proj_add(load_proj(ax, ay, az, n, i), load_proj(bx, by, bz, n, i));
   store_u16_rows(ox, n, i, r.x);
   store_u16_rows(oy, n, i, r.y);
   store_u16_rows(oz, n, i, r.z);
+}
+
+// Word `rank` of each coordinate of element i, as load_proj reads them.
+struct Words3 {
+  uint32_t x, y, z;
+};
+
+__device__ __forceinline__ Words3 load_words(const uint32_t* __restrict__ x,
+                                             const uint32_t* __restrict__ y,
+                                             const uint32_t* __restrict__ z,
+                                             size_t stride, size_t i,
+                                             int rank) {
+  return {load_u16_word(x, stride, i, rank), load_u16_word(y, stride, i, rank),
+          load_u16_word(z, stride, i, rank)};
+}
+
+// The point whose words the group's lanes hold (load_words), on every lane.
+__device__ __forceinline__ Proj proj_from_group_words(const Words3& w) {
+  Proj p;
+  p.x = fp_from_group_words(kWarpMask, w.x);
+  p.y = fp_from_group_words(kWarpMask, w.y);
+  p.z = fp_from_group_words(kWarpMask, w.z);
+  return p;
+}
+
+// The same add, one group of kAddGroup lanes an element (proj_add_group):
+// the path for widths that leave the card short of warps. Rank r loads and
+// stores word r of each coordinate (six loads a lane, and one load of a
+// warp reads eight rows of four neighbouring elements); the group exchanges
+// the loaded words. The spare groups of a ragged last block add element
+// n - 1 again and store nothing, so every lane of a warp takes part in the
+// exchanges.
+__global__ void __launch_bounds__(kThreads, kGroupMinBlocks)
+    padd_group_kernel(const uint32_t* __restrict__ ax,
+                      const uint32_t* __restrict__ ay,
+                      const uint32_t* __restrict__ az,
+                      const uint32_t* __restrict__ bx,
+                      const uint32_t* __restrict__ by,
+                      const uint32_t* __restrict__ bz,
+                      uint32_t* __restrict__ ox, uint32_t* __restrict__ oy,
+                      uint32_t* __restrict__ oz, long long n) {
+  const long long e =
+      ((long long)blockIdx.x * blockDim.x + threadIdx.x) / kAddGroup;
+  const int rank = threadIdx.x % kAddGroup;
+  const long long i = e < n ? e : n - 1;
+  const Words3 wa = load_words(ax, ay, az, n, i, rank);
+  const Words3 wb = load_words(bx, by, bz, n, i, rank);
+  const Proj r = proj_add_group(proj_from_group_words(wa),
+                                proj_from_group_words(wb), rank, kWarpMask);
+  if (e >= n) return;
+  store_u16_rows_rank(ox, n, i, r.x, rank);
+  store_u16_rows_rank(oy, n, i, r.y, rank);
+  store_u16_rows_rank(oz, n, i, r.z, rank);
 }
 
 // Window sums M·X(n) - sum X(s_b) from (16, W) u16 rows of X(n) (nx, ny, nz)
@@ -197,8 +298,9 @@ __global__ void __launch_bounds__(kAddGroup)
 }
 
 // Per-lane EC sum over the step axis: (16, steps, lanes) -> (16, lanes),
-// accumulator starting at infinity.
-__global__ void __launch_bounds__(kThreads)
+// accumulator starting at infinity, steps added in order. One thread a lane:
+// the path for lane counts that fill the card.
+__global__ void __launch_bounds__(kThreads, kAddMinBlocks)
     fold_add_kernel(const uint32_t* __restrict__ bx,
                     const uint32_t* __restrict__ by,
                     const uint32_t* __restrict__ bz, uint32_t* __restrict__ ox,
@@ -208,17 +310,41 @@ __global__ void __launch_bounds__(kThreads)
   if (lane >= lanes) return;
   const size_t plane = (size_t)steps * lanes;
   Proj acc = proj_infinity();
-  for (int k = 0; k < steps; ++k) {
-    const size_t off = (size_t)k * lanes + lane;
-    Proj b;
-    b.x = load_u16_rows(bx, plane, off);
-    b.y = load_u16_rows(by, plane, off);
-    b.z = load_u16_rows(bz, plane, off);
-    acc = proj_add(acc, b);
-  }
+  for (int k = 0; k < steps; ++k)
+    acc = proj_add(acc, load_proj(bx, by, bz, plane, (size_t)k * lanes + lane));
   store_u16_rows(ox, lanes, lane, acc.x);
   store_u16_rows(oy, lanes, lane, acc.y);
   store_u16_rows(oz, lanes, lane, acc.z);
+}
+
+// The same sum, one group of kAddGroup lanes a lane's chain
+// (proj_add_group), loads and stores as in padd_group_kernel: the path for
+// lane counts that leave the card short of warps. The next step's words
+// (three registers a lane) are loaded before this step's add, so that
+// their latency hides behind the add.
+__global__ void __launch_bounds__(kThreads, kGroupMinBlocks)
+    fold_add_group_kernel(const uint32_t* __restrict__ bx,
+                          const uint32_t* __restrict__ by,
+                          const uint32_t* __restrict__ bz,
+                          uint32_t* __restrict__ ox, uint32_t* __restrict__ oy,
+                          uint32_t* __restrict__ oz, int steps, int lanes) {
+  const int g = (blockIdx.x * blockDim.x + threadIdx.x) / kAddGroup;
+  const int rank = threadIdx.x % kAddGroup;
+  const int lane = g < lanes ? g : lanes - 1;
+  const size_t plane = (size_t)steps * lanes;
+  Proj acc = proj_infinity();
+  Words3 w = load_words(bx, by, bz, plane, lane, rank);
+  for (int k = 0; k < steps; ++k) {
+    const int next = k + 1 < steps ? k + 1 : k;
+    const Words3 nw =
+        load_words(bx, by, bz, plane, (size_t)next * lanes + lane, rank);
+    acc = proj_add_group(acc, proj_from_group_words(w), rank, kWarpMask);
+    w = nw;
+  }
+  if (g >= lanes) return;
+  store_u16_rows_rank(ox, lanes, lane, acc.x, rank);
+  store_u16_rows_rank(oy, lanes, lane, acc.y, rank);
+  store_u16_rows_rank(oz, lanes, lane, acc.z, rank);
 }
 
 // The prefix scan of scan_madd_kernel on unpacked (16, steps, lanes) u16-row
@@ -312,6 +438,9 @@ unsigned blocks_for(long long n) {
   return (unsigned)((n + kThreads - 1) / kThreads);
 }
 
+// Blocks for n elements at kAddGroup lanes an element.
+unsigned group_blocks_for(long long n) { return blocks_for(n * kAddGroup); }
+
 }  // namespace
 
 extern "C" {
@@ -330,6 +459,16 @@ int tpu_msm_padd(const uint32_t* ax, const uint32_t* ay, const uint32_t* az,
                  void* stream) {
   padd_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
       ax, ay, az, bx, by, bz, ox, oy, oz, n);
+  return (int)cudaGetLastError();
+}
+
+int tpu_msm_padd_group(const uint32_t* ax, const uint32_t* ay,
+                       const uint32_t* az, const uint32_t* bx,
+                       const uint32_t* by, const uint32_t* bz, uint32_t* ox,
+                       uint32_t* oy, uint32_t* oz, long long n, void* stream) {
+  padd_group_kernel<<<group_blocks_for(n), kThreads, 0,
+                      (cudaStream_t)stream>>>(ax, ay, az, bx, by, bz, ox, oy,
+                                              oz, n);
   return (int)cudaGetLastError();
 }
 
@@ -356,6 +495,15 @@ int tpu_msm_fold_add(const uint32_t* bx, const uint32_t* by, const uint32_t* bz,
                      int lanes, void* stream) {
   fold_add_kernel<<<blocks_for(lanes), kThreads, 0, (cudaStream_t)stream>>>(
       bx, by, bz, ox, oy, oz, steps, lanes);
+  return (int)cudaGetLastError();
+}
+
+int tpu_msm_fold_add_group(const uint32_t* bx, const uint32_t* by,
+                           const uint32_t* bz, uint32_t* ox, uint32_t* oy,
+                           uint32_t* oz, int steps, int lanes, void* stream) {
+  fold_add_group_kernel<<<group_blocks_for(lanes), kThreads, 0,
+                          (cudaStream_t)stream>>>(bx, by, bz, ox, oy, oz,
+                                                  steps, lanes);
   return (int)cudaGetLastError();
 }
 

@@ -11,18 +11,25 @@ There is no fallback from one to the other.
                                          its aliases scan_madd_packed_u16
                                          (:615), scan_madd_packed_u16_f15
                                          (:687), scan_madd_packed_u16_mxu (:860)
-  padd            padd_kernel            padd_packed (:1009)
+  padd            padd_kernel,           padd_packed (:1009)
+                  padd_group_kernel
   window_tail     window_tail_kernel     padd_packed, in pippenger.py's
                                          M·X(n) - sum X(s_b) (:475-482)
   horner          horner_kernel          padd_packed, in pippenger.py's
                                          horner_fold (:690-708)
-  fold_add        fold_add_kernel        fold_add_packed (:953)
+  fold_add        fold_add_kernel,       fold_add_packed (:953)
+                  fold_add_group_kernel
   pmadd           pmadd_kernel           pmadd_packed (:988)
   jac_madd        jac_madd_kernel        madd_packed (:367)
   jac_add         jac_add_kernel         add_packed (:385)
   scan_madd_rows  scan_madd_rows_kernel  scan_madd_packed (:565)
   montmul_chain   montmul_chain_kernel   benches/montmul_benchmark.py `run`
                                          (:89-107, built by _build_kernel)
+
+padd and fold_add each launch one of two kernels: one thread an element
+(padd_kernel, fold_add_kernel; for fold_add an element is a lane's chain)
+or eight lanes an element (padd_group_kernel, fold_add_group_kernel),
+whichever `kernel_path` gives for the width and the card's SM count.
 
 The fused MSM path runs scan_madd (one launch per group of windows), padd,
 fold_add, window_tail and horner; the per-window path runs pmadd (one
@@ -38,12 +45,16 @@ What bounds the kernels, and what their design does about it, is written at
 the top of `csrc/ec_kernels.cu` and `csrc/montmul.cu` (the montmul kernel is
 in its own source).
 
-Counters: `<wrapper>.launches` counts kernel launches and
-`<plain>.calls` counts plain-version calls; callers may reset them to 0.
+Counters: `<wrapper>.launches` counts kernel launches (both kernels of
+padd and fold_add; `<wrapper>.group_launches` those of the group kernel
+alone) and `<plain>.calls` counts plain-version calls; callers may reset
+them to 0.
 Operands are int32 tensors that carry u32 bit patterns.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -70,17 +81,17 @@ def _i32(ts):
     return tuple(t.to(_I32) for t in ts)
 
 
-def _elementwise(name, ops):
-    """Launch the elementwise kernel `tpu_msm_<name>` on the card for
+def _elementwise(entry, ops):
+    """Launch the elementwise kernel of C entry `entry` on the card for
     (16, N) CUDA operands; returns its three (16, N) results."""
     if ops[0].dim() != 2 or ops[0].shape[0] != 16 or any(
             t.shape != ops[0].shape for t in ops):
-        raise ValueError(f"{name} operands must all be (16, N)")
+        raise ValueError(f"{entry} operands must all be (16, N)")
     n = ops[0].shape[1]
     if n < 1:
-        raise ValueError(f"{name} needs N >= 1")
+        raise ValueError(f"{entry} needs N >= 1")
     out = tuple(torch.empty_like(ops[0]) for _ in range(3))
-    _build.launch(f"tpu_msm_{name}", ops[0].device, *ops, *out, n)
+    _build.launch(entry, ops[0].device, *ops, *out, n)
     return out
 
 
@@ -154,17 +165,63 @@ def padd_plain(ax, ay, az, bx, by, bz):
 padd_plain.calls = 0
 
 
-def padd(ax, ay, az, bx, by, bz):
-    """Kernel wrapper of padd_plain (same arguments and result)."""
+# padd and fold_add each have two kernels: one thread an element (a lane's
+# chain, for fold_add), or a group of eight lanes an element. One thread an
+# element is the faster wherever the card is full; with few elements an SM
+# it is latency-bound (one padd launch takes about 0.0125 ms from 2048 to
+# 8192 elements), and eight lanes an element give eight times the warps at
+# about 2.2 times the instructions. Both kernels timed by chip_smoke.py
+# phase 2 (NVIDIA H100 80GB HBM3, 700.00 W, 132 SMs; PERF.md §6): padd
+# group 0.0105 ms against thread 0.0126 at 8192 elements, 0.0182 against
+# 0.0133 at 16,384; fold_add at 64 steps group 0.528 against 0.697 at 8192
+# lanes, 1.021 against 0.698 at 16,384. The group time grows linearly
+# there, so both crossovers fall at 81-83 elements an SM.
+GROUP_BELOW_PER_SM = 80
+PATHS = ("thread", "group")
+
+
+def kernel_path(width: int, sm_count: int) -> str:
+    """The kernel of padd or fold_add for `width` elements (fold_add: lanes)
+    on a card of `sm_count` SMs: "group" (eight lanes an element) below
+    GROUP_BELOW_PER_SM elements an SM, else "thread"."""
+    return "group" if width < GROUP_BELOW_PER_SM * sm_count else "thread"
+
+
+def _entry(name: str, path, width: int, device) -> str:
+    """The C entry's name for `path`, or for the path kernel_path gives
+    `width` on `device`'s SM count when path is None."""
+    if path is None:
+        path = kernel_path(width, _sm_count(device))
+    return f"tpu_msm_{name}" + ("_group" if path == "group" else "")
+
+
+def _check_path(path) -> None:
+    if path is not None and path not in PATHS:
+        raise ValueError(f"path must be one of {PATHS} or None, got "
+                         f"{path!r}")
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def padd(ax, ay, az, bx, by, bz, path=None):
+    """Kernel wrapper of padd_plain (same arguments and result). `path`
+    ("thread" or "group") picks the kernel; None lets kernel_path choose."""
     ops = (ax, ay, az, bx, by, bz)
+    _check_path(path)
     if not _build.on_cuda(*ops):
         return padd_plain(*ops)
-    out = _elementwise("padd", ops)
+    entry = _entry("padd", path, ax.shape[-1], ax.device)
+    out = _elementwise(entry, ops)
     padd.launches += 1
+    padd.group_launches += entry.endswith("_group")
     return out
 
 
 padd.launches = 0
+padd.group_launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -288,8 +345,11 @@ def fold_add_plain(bx, by, bz):
 fold_add_plain.calls = 0
 
 
-def fold_add(bx, by, bz):
-    """Kernel wrapper of fold_add_plain (same arguments and result)."""
+def fold_add(bx, by, bz, path=None):
+    """Kernel wrapper of fold_add_plain (same arguments and result), one
+    launch. `path` ("thread" or "group") picks the kernel; None lets
+    kernel_path choose."""
+    _check_path(path)
     if not _build.on_cuda(bx, by, bz):
         return fold_add_plain(bx, by, bz)
     if bx.dim() != 3 or bx.shape[0] != 16 or by.shape != bx.shape \
@@ -298,15 +358,17 @@ def fold_add(bx, by, bz):
     _, steps, lanes = bx.shape
     if steps < 1 or lanes < 1:
         raise ValueError("fold_add needs at least one step and one lane")
+    entry = _entry("fold_add", path, lanes, bx.device)
     out = tuple(torch.empty((16, lanes), dtype=_I32, device=bx.device)
                 for _ in range(3))
-    _build.launch("tpu_msm_fold_add", bx.device, bx, by, bz, *out, steps,
-                  lanes)
+    _build.launch(entry, bx.device, bx, by, bz, *out, steps, lanes)
     fold_add.launches += 1
+    fold_add.group_launches += entry.endswith("_group")
     return out
 
 
 fold_add.launches = 0
+fold_add.group_launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -329,7 +391,7 @@ def pmadd(px, py, pz, qx, qy):
     ops = (px, py, pz, qx, qy)
     if not _build.on_cuda(*ops):
         return pmadd_plain(*ops)
-    out = _elementwise("pmadd", ops)
+    out = _elementwise("tpu_msm_pmadd", ops)
     pmadd.launches += 1
     return out
 
@@ -352,7 +414,7 @@ def jac_madd(x1, y1, z1, x2, y2):
     ops = (x1, y1, z1, x2, y2)
     if not _build.on_cuda(*ops):
         return jac_madd_plain(*ops)
-    out = _elementwise("jac_madd", ops)
+    out = _elementwise("tpu_msm_jac_madd", ops)
     jac_madd.launches += 1
     return out
 
@@ -375,7 +437,7 @@ def jac_add(x1, y1, z1, x2, y2, z2):
     ops = (x1, y1, z1, x2, y2, z2)
     if not _build.on_cuda(*ops):
         return jac_add_plain(*ops)
-    out = _elementwise("jac_add", ops)
+    out = _elementwise("tpu_msm_jac_add", ops)
     jac_add.launches += 1
     return out
 
