@@ -10,8 +10,8 @@ C++ engine's result exactly:
 
   * the main path: `tpu_msm_torch.msm_best` at n = 2^12 and n = 2^20 on
     bench-style inputs, with the tuned row `select_config` reads from the
-    autotune table (the fused route: scan_madd over groups of windows,
-    padd, fold_add, digit_hist, window_tail, horner);
+    autotune table (the fused route: scan_madd and digit_hist over groups
+    of windows, padd, fold_add, window_tail, horner);
   * the per-window path: `tpu_msm_torch.msm` at n = 2^20 with 16384 scan
     lanes, once with each segment-start option (pmadd, padd, fold_add,
     digit_hist, window_tail, horner);
@@ -25,22 +25,29 @@ C++ engine's result exactly:
     configuration without it (phase 8); `select_config` from the "cuda"
     rows of the autotune table at 2^16, 2^18 and 2^20,
     `bindings.benchmarks.benchmark_gpu_msm_best(16)` and `msm_best` at 2^16
-    (phase 9).
+    (phase 9);
+  * the options the tuned row does not take (phase 10): `msm_device` at
+    2^20 with c = 13 signed windows and at 2^16 with
+    segment_starts="bincount" and "ss_scan", each against the tuned row's
+    result.
 
-Phase 4 also times the fused route at the per-window path's 16384 lanes,
-which the route rule does not take there. Phase 6, last so that no timing
-runs after the profiler, profiles `msm_device` at 2^20 with the tuned row
-and on each route, and with and without GLV at 2^18 and 2^20
-(`tpu_msm_torch.cli.trace`): the device's busy time, idle share and time
-per kernel. Beside each kernel's time stand its bound
-(the larger of its 32-bit integer multiplies over the card's rate and its
-bytes over the memory rate, counted from this run's inputs) and, for the
-histogram, `torch.bincount`'s time. The serial tail (window_tail, horner)
-is bound by latency instead: its serial adds x 2 dependent products x the
+Phase 2 holds the histogram in each of its regimes (ops/hist.py, `plan`)
+against its plain version and times the two regimes for the tuned row's
+65,536 bins (split bins, 16-bit counters) in turns. Phase 4 also times
+the fused route at the per-window path's 16384 lanes, which the route rule
+does not take there. Phase 6, last so that no timing runs after the
+profiler, profiles `msm_device` at 2^20 with the tuned row and on each
+route, and with and without GLV at 2^18 and 2^20 (`tpu_msm_torch.cli.trace`):
+the device's busy time, idle share and time per kernel. Beside each
+kernel's time stand its bound (the larger of its 32-bit integer multiplies
+over the card's rate and its bytes over the memory rate, counted from this
+run's inputs) and, for the histogram, `torch.bincount`'s and
+`torch.searchsorted`'s times. The serial tail (window_tail, horner) is
+bound by latency instead: its serial adds x 2 dependent products x the
 least time one product can take, the card's pipe floor (the product's
-multiply instructions in the built SASS at 2 clocks each); beside it
-the same chain at the latency of one product of the port's own field core
-(the montmul_chain kernel on one lane), and the chain of width-16 and
+multiply instructions in the built SASS at 2 clocks each); beside it the
+same chain at the latency of one product of the port's own field core (the
+montmul_chain kernel on one lane), and the chain of width-16 and
 width-1 `padd` launches it replaced, timed in the same run.
 
 The kernel counters are set to 0 just before each path and read just after.
@@ -57,6 +64,7 @@ import functools
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -389,6 +397,10 @@ def phase_build():
         if "Compiling entry function" in line or "Function properties" in line:
             # Lines that follow a device function's header are not a kernel's.
             kernel = next((k for k in KERNEL_FUNCTIONS if k in line), None)
+            # digit_hist_kernel<u16>: its mangled template argument.
+            args = re.search(r"digit_hist_kernelILb(\d)E", line)
+            if args:
+                kernel += f"<u16 {args[1]}>"
         elif kernel and ("registers" in line or "spill" in line):
             detail = line.replace("ptxas info    :", "").strip()
             log(1, f"ptxas {kernel}: {detail}")
@@ -418,15 +430,15 @@ def main_shapes(dev):
             "c": cfg.window_bits, "signed": cfg.signed_digits}
 
 
-def phase_kernels(dev):
+def phase_kernels(dev, scalars):
     """Each kernel against its plain version (bit-identical): first on edge
     lanes, then at every shape the main path at 2^20 gives it with the
-    tuned row (main_shapes), where both are also timed. Returns the
-    kernels' JSON entries."""
+    tuned row (main_shapes), where both are also timed; the histogram on
+    the window digits of `scalars`, bench.py's (16, 2^20) scalar limbs.
+    Returns the kernels' JSON entries."""
     import torch
 
     from tpu_msm_torch.ops import cuda_curve as cc
-    from tpu_msm_torch.ops import hist
     from tpu_msm_torch.ops.pippenger import pack_u16_rows
 
     entries = {}
@@ -478,19 +490,7 @@ def phase_kernels(dev):
     n, lanes, steps, w, m = (sh[k] for k in ("n", "lanes", "steps", "w", "m"))
     log(2, f"main path at 2^20: {sh}")
 
-    # digit_hist at n with m buckets, with one heavy bin.
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    digits = torch.randint(0, m + 2, (n,), generator=gen, device=dev,
-                           dtype=torch.int32)
-    digits[: n // 8] = 12345
-    check("digit_hist", [n], hist.digit_hist(digits, m),
-          hist.digit_hist_plain(digits, m))
-    nb = hist.num_bins(m)
-    entries["digit_hist"].update(timed(
-        "digit_hist", [n], lambda: hist.digit_hist(digits, m),
-        lambda: hist.digit_hist_plain(digits, m),
-        {"ops": n, "bytes": 4 * (n + nb)},
-        library=lambda: torch.bincount(digits, minlength=nb)))
+    phase_hist(dev, entries, sh, scalars)
 
     # The scan: one window at (8, steps, lanes), checked in full, then the
     # main path's group of g windows at (g, 8, steps, lanes) in one launch,
@@ -596,6 +596,125 @@ def phase_kernels(dev):
     entries["padd_group"].update(first, other_shapes=others)
     phase_tail(dev, entries, sh, big)
     return entries
+
+
+# The histogram's two regimes for bins that do not fit one block as int32
+# (ops/hist.py, `plan`): split bins, 16-bit counters.
+HIST_REGIMES = ("split", "u16")
+
+
+def hist_work(g, n, m):
+    """The histogram's work: each digit read once and each count written
+    once (bytes), one add a digit."""
+    from tpu_msm_torch.ops import hist
+
+    return {"ops": g * n, "bytes": 4 * g * (n + hist.num_bins(m))}
+
+
+def phase_hist(dev, entries, sh, scalars):
+    """digit_hist against its plain version (bit-identical), one launch for
+    a group of windows: at the main path's (G, 2^20) window digits of
+    bench.py's scalars with the tuned row (m = 65535), where the regimes for
+    bins that do not fit one block (split bins, 16-bit counters) are timed
+    in turns (split, u16, u16, split); at (1, 2^20) sorted;
+    at m = 8, 8191 and 32768 (one block's int32 counters); on a one-bin
+    skew, a ragged n and n = 0. Each timed shape by CUDA-graph replay
+    beside torch.bincount (one call on row·nb + digit) and, for the segment
+    starts, torch.searchsorted of 1..m in the sorted rows."""
+    import torch
+
+    from tpu_msm_torch import select_config
+    from tpu_msm_torch.ops import hist, pippenger
+
+    check = checker(entries, 2)
+    timed = timer(2)
+    n, m, g = sh["n"], sh["m"], sh["g"]
+    cfg = select_config(n, dev)
+    sl = torch.from_numpy(scalars.view(np.int32)).to(dev)
+    digits = (pippenger.signed_window_digits(sl, cfg)[0] if cfg.signed_digits
+              else pippenger.window_digits(sl, cfg))[:g].contiguous()
+    del sl
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def lib_calls(d, m):
+        """torch.bincount of the flat row·nb + digit, and searchsorted of
+        1..m in the sorted rows (the row offsets and the sort made once,
+        outside the timing)."""
+        nb = hist.num_bins(m)
+        rows = d.shape[0]
+        flat = (d.to(torch.int64) + nb * torch.arange(
+            rows, device=dev)[:, None]).reshape(-1)
+        srt = torch.sort(d, dim=1).values
+        bvals = torch.arange(1, m + 1, dtype=d.dtype, device=dev).repeat(
+            rows, 1)
+        return (lambda: torch.bincount(flat, minlength=rows * nb),
+                lambda: torch.searchsorted(srt, bvals, side="left",
+                                           out_int32=True))
+
+    def timed_hist(label, d, m):
+        bincount, search = lib_calls(d, m)
+        rec = timed("digit_hist", label, lambda: hist.digit_hist(d, m),
+                    lambda: hist.digit_hist_plain(d, m),
+                    hist_work(d.shape[0], d.shape[1], m), library=bincount)
+        p = hist.plan(d.shape[0], d.shape[1], m, sms)
+        rec.update(plan=str(p._asdict()),
+                   searchsorted_ms=cuda_ms(search))
+        log(2, f"digit_hist {label}: plan {p._asdict()}; torch.searchsorted "
+            f"of 1..m in the sorted rows {rec['searchsorted_ms']:.4f} ms")
+        return rec
+
+    # ---- the main path's group: both regimes in turns ----
+    label = [g, n, f"m {m}", "bench digits"]
+    want = hist.digit_hist_plain(digits, m)
+    for big in HIST_REGIMES:
+        check("digit_hist", label + [big],
+              hist.digit_hist(digits, m, big=big), want)
+    runs = {big: [] for big in HIST_REGIMES}
+    for big in HIST_REGIMES + HIST_REGIMES[::-1]:
+        runs[big].append(graph_ms(lambda: hist.digit_hist(digits, m,
+                                                          big=big)))
+    ms = {big: statistics.mean(r) for big, r in runs.items()}
+    log(2, "digit_hist regimes at " + str(label) + ": " + ", ".join(
+        f"{big} {runs[big]} ms" for big in HIST_REGIMES) + "; faster: "
+        + min(ms, key=ms.get) + "; the plan takes "
+        + hist.plan(g, n, m, sms).regime)
+    main = timed_hist(label, digits, m)
+    main["regimes_ms"] = runs
+    entries["digit_hist"].update(main)
+    # The one-window (1-D) contract on the first window.
+    check("digit_hist", [n, f"m {m}"], hist.digit_hist(digits[0], m),
+          hist.digit_hist_plain(digits[0], m))
+
+    # ---- other shapes: (1, n) sorted, the bins of other widths ----
+    others = []
+    srt = torch.sort(digits[:1], dim=1).values
+    check("digit_hist", [1, n, f"m {m}", "sorted"], hist.digit_hist(srt, m),
+          hist.digit_hist_plain(srt, m))
+    others.append(timed_hist([1, n, f"m {m}", "sorted"], srt, m))
+    del srt
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for mm in (8, 8191, 1 << 15):
+        d = torch.randint(0, mm + 2, (g, n), generator=gen, device=dev,
+                          dtype=torch.int32)
+        d[0, : n // 8] = min(12345, mm)  # a heavy bin
+        check("digit_hist", [g, n, f"m {mm}"], hist.digit_hist(d, mm),
+              hist.digit_hist_plain(d, mm))
+        others.append(timed_hist([g, n, f"m {mm}"], d, mm))
+    del d
+    # ---- edge cases, both regimes ----
+    nb = hist.num_bins(m)
+    skew = torch.full((3, 1 << 18), 12345, dtype=torch.int32, device=dev)
+    skew[2] = m + 1
+    ragged = digits[:3, 3:].contiguous()
+    ragged[0, :5] = torch.tensor([nb, nb - 1, m + 2, 1 << 30, 0])
+    for name, d in (("one bin", skew), ("ragged, past the last bin", ragged),
+                    ("n = 0", digits[:, :0])):
+        for big in HIST_REGIMES:
+            check("digit_hist", [*d.shape, f"m {m}", name, big],
+                  hist.digit_hist(d, m, big=big),
+                  hist.digit_hist_plain(d, m))
+    entries["digit_hist"]["other_shapes"] = others
+    torch.cuda.synchronize()
 
 
 def product_latency_ms(dev):
@@ -846,7 +965,8 @@ def phase_e2e(dev, inputs, expected):
         .bit_length()}
     paths = {width: cc.kernel_path(width, sms) for width in padd_calls}
     fold_path = cc.kernel_path(sh["w"] * sh["fanout"], sms)
-    want = {"scan_madd": -(-sh["w"] // sh["g"]), "window_tail": 1,
+    want = {"scan_madd": -(-sh["w"] // sh["g"]),
+            "digit_hist": -(-sh["w"] // sh["g"]), "window_tail": 1,
             "horner": 1, "padd": sum(padd_calls.values()),
             "padd_group": sum(k for width, k in padd_calls.items()
                               if paths[width] == "group"),
@@ -855,7 +975,8 @@ def phase_e2e(dev, inputs, expected):
         raise AssertionError(f"launches of one msm_device call at 2^20: "
                              f"{one}, expected {want}")
     log(3, f"msm_device n=2^20: G = {sh['g']} of {sh['w']} windows a scan "
-        f"launch; launches {json.dumps(one)} (scan {one['scan_madd']}, padd "
+        f"and histogram launch; launches {json.dumps(one)} (scan "
+        f"{one['scan_madd']}, digit_hist {one['digit_hist']}, padd "
         f"{one['padd']}: {one['padd'] - one['padd_group']} padd_kernel, "
         f"{one['padd_group']} padd_group_kernel, by width "
         f"{json.dumps({w: [k, paths[w]] for w, k in padd_calls.items()})}; "
@@ -1254,6 +1375,47 @@ def phase_tuning(dev, inputs, expected):
     log(9, "msm_best n=2^16 == native engine (affine, exact)")
 
 
+def phase_options(dev, inputs, expected):
+    """The configurations the tuned row does not take, each against the
+    tuned row's result on the same inputs (the native engine's, phases 3
+    and 9): msm_device at 2^20 with c = 13 signed windows (bits extracted
+    across limbs; 20 windows, one histogram launch a group), and at 2^16
+    with segment_starts "bincount" and "ss_scan" (no histogram launch);
+    each beside the tuned row's msm_device time."""
+    import dataclasses
+
+    import tpu_msm_torch
+    from tpu_msm_torch.ops import pippenger
+    from tpu_msm_torch.utils import interop
+
+    for log_n, change in ((20, dict(window_bits=13, signed_digits=True)),
+                          (16, dict(segment_starts="bincount")),
+                          (16, dict(segment_starts="ss_scan"))):
+        tuned = tpu_msm_torch.select_config(1 << log_n, dev)
+        cfg = dataclasses.replace(tuned, **change)
+        dpx, dpy, dsl = interop.limbs_to_device(*inputs[log_n], dev)
+        reset_counts()
+        got = affine(tpu_msm_torch.msm_device(dpx, dpy, dsl, cfg))
+        if got != expected[log_n]:
+            raise AssertionError(f"msm_device n=2^{log_n} {change}: {got} != "
+                                 f"the tuned row's {expected[log_n]}")
+        hist_path = cfg.segment_starts in ("hist", "hist_cols")
+        one = read_counts(10, ("scan_madd", "padd", "window_tail", "horner")
+                          + (("digit_hist",) if hist_path else ()))
+        groups = -(-cfg.num_windows() // pippenger.window_group_size(
+            cfg.num_windows(), 1 << log_n, dev))
+        if one["digit_hist"] != (groups if hist_path else 0):
+            raise AssertionError(f"digit_hist launches {one['digit_hist']} "
+                                 f"with {change}, {groups} groups")
+        times = {k: cuda_ms(lambda: tpu_msm_torch.msm_device(
+            dpx, dpy, dsl, c)) for k, c in (("change", cfg),
+                                            ("tuned", tuned))}
+        log(10, f"msm_device n=2^{log_n} {change} == the tuned row's result "
+            f"(affine, exact); {cfg.num_windows()} windows in {groups} "
+            f"group(s), digit_hist launches {one['digit_hist']}; "
+            f"{times['change']:.3f} ms, the tuned row {times['tuned']:.3f} ms")
+
+
 EC = "tpu_msm_torch/csrc/ec_kernels.cu"
 PC = "tpu_msm/ops/pallas_curve.py"
 # name: (source, the TPU kernels it replaces, the path its launches count)
@@ -1307,11 +1469,11 @@ def main() -> int:
 
     phase_build()
     lap(1)
-    entries = phase_kernels(dev)
+    inputs = {log_n: bench_inputs(1 << log_n) for log_n in (12, 20)}
+    entries = phase_kernels(dev, inputs[20][2])
     entries.update(phase_new_kernels(dev))
     phase_window_kernels(dev, entries)
     lap(2)
-    inputs = {log_n: bench_inputs(1 << log_n) for log_n in (12, 20)}
     expected = {}
     for log_n, (px, py, sl) in inputs.items():
         t1 = time.perf_counter()
@@ -1335,6 +1497,8 @@ def main() -> int:
     lap(8)
     phase_tuning(dev, more, expected)
     lap(9)
+    phase_options(dev, more, expected)
+    lap(10)
     phase_profile(dev, more)
     lap(6)
 

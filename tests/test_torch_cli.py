@@ -117,13 +117,14 @@ def test_parallel_runs_only_for_single_device_modes():
 
 def test_kernel_check_routes_on_cpu():
     """The check's comparisons on the CPU, where every wrapper runs its
-    plain version: all eleven routes (both kernels of padd and of fold_add
-    among them) agree with the curve-level ops and with searchsorted."""
+    plain version: all twelve routes (both kernels of padd and of fold_add,
+    and the histogram of one window and of a group of three, among them)
+    agree with the curve-level ops and with searchsorted."""
     failed = profiler._check_routes("cpu")
     assert set(failed) == {
         "pmadd", "padd", "padd_group", "jac_madd", "jac_add",
         "scan_madd_rows", "scan_madd", "fold_add", "fold_add_group",
-        "digit_hist[hist]", "digit_hist[hist_cols]"}
+        "digit_hist[hist]", "digit_hist[hist_cols]", "digit_hist[group]"}
     assert not any(failed.values()), failed
 
 

@@ -136,6 +136,13 @@ def test_hist_cols_starts_match_pallas(m):
 
 
 def test_segment_starts_option_is_checked():
+    """A value neither package takes raises in both; every value the JAX
+    package takes is taken."""
     with pytest.raises(ValueError, match="segment_starts"):
-        MsmConfig(segment_starts="bincount")
-    assert MsmConfig(segment_starts="hist_cols").segment_starts == "hist_cols"
+        JaxMsmConfig(segment_starts="ss_bisect")
+    with pytest.raises(ValueError, match="segment_starts"):
+        MsmConfig(segment_starts="ss_bisect")
+    for value in ("bincount", "ss_scan", "ss_sort", "ss_2level", "hist",
+                  "hist_cols"):
+        assert JaxMsmConfig(segment_starts=value).segment_starts == value
+        assert MsmConfig(segment_starts=value).segment_starts == value

@@ -19,6 +19,7 @@ their plain PyTorch versions run.
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Tuple
 
 import numpy as np
@@ -38,9 +39,10 @@ Affine = Optional[Tuple[int, int]]
 ZERO_FILTER_THRESHOLD = 0.30
 
 # Below this size msm_best runs the native C++ CPU engine instead of the
-# device. The value is inherited from the JAX package for parity and has not
-# been measured on the H100 yet.
-CPU_THRESHOLD = 1 << 12
+# device. The default is inherited from the JAX package for parity and has
+# not been measured on the H100 yet. Override: TPU_MSM_CPU_THRESHOLD, read
+# at import as the JAX package reads it.
+CPU_THRESHOLD = int(os.environ.get("TPU_MSM_CPU_THRESHOLD", 1 << 12))
 
 
 def _device(device) -> torch.device:

@@ -107,7 +107,8 @@ def load() -> ctypes.CDLL:
                 "tpu_msm_horner": [vp] * 6 + [i32, i32, vp],
                 "tpu_msm_fold_add": [vp] * 6 + [i32, i32, vp],
                 "tpu_msm_fold_add_group": [vp] * 6 + [i32, i32, vp],
-                "tpu_msm_digit_hist": [vp, i64, vp, i64, vp],
+                "tpu_msm_digit_hist": [vp, i32, i64, vp, i32, i32, i32, i32,
+                                       i64, i32, vp],
                 "tpu_msm_pmadd": [vp] * 8 + [i64, vp],
                 "tpu_msm_jac_madd": [vp] * 8 + [i64, vp],
                 "tpu_msm_jac_add": [vp] * 9 + [i64, vp],

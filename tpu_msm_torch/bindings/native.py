@@ -1,10 +1,12 @@
 """ctypes bindings to the native C++ CPU MSM engine (native/msm_cpu.cpp),
 without jax (counterpart of `tpu_msm/bindings/native.py:43-118`).
 
-Loads the same `native/build/libtpu_msm_cpu.so` the JAX package uses. When it
-is missing or older than its source it is built with `make -C native` into a
-temporary directory and renamed into place, so a process that has the old
-library mapped never sees a half-written file.
+Loads the same `native/build/libtpu_msm_cpu.so` the JAX package uses; set
+TPU_MSM_NATIVE_DIR to point at another `native` tree (a prebuilt one), as
+for the JAX package. When the library is missing or older than its source
+it is built with `make -C <dir>` into a temporary directory and renamed into
+place, so a process that has the old library mapped never sees a
+half-written file.
 """
 
 from __future__ import annotations
@@ -21,7 +23,9 @@ import numpy as np
 
 from tpu_msm_torch.models import bn254
 
-_NATIVE_DIR = Path(__file__).resolve().parents[2] / "native"
+_NATIVE_DIR = Path(os.environ.get("TPU_MSM_NATIVE_DIR",
+                                  Path(__file__).resolve().parents[2]
+                                  / "native"))
 _SO = _NATIVE_DIR / "build" / "libtpu_msm_cpu.so"
 
 _lib: Optional[ctypes.CDLL] = None

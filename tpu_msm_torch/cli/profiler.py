@@ -264,20 +264,30 @@ def _check_routes(device, lanes: int = CHECK_LANES):
         check("fold_add" + _GROUP[path], cc.fold_add(bx, by, bz, path=path),
               cc.fold_add_plain(bx, by, bz), curve.proj_eq, acc)
 
-    # digit_hist through both segment-start options, against searchsorted.
-    m = 1 << 15
+    # digit_hist through both segment-start options, one window (1-D) and
+    # a group of three windows in one launch (2-D), against searchsorted;
+    # at m = 2^15 (c = 16 signed: the bins fit one block as int32) and
+    # 65535 (c = 16 unsigned, the tuned row: they do not; ops/hist.py,
+    # `plan`).
     rng = np.random.RandomState(7)
-    dig = rng.randint(0, m + 2, size=2048 * 8).astype(np.int32)
-    starts = np.searchsorted(np.sort(dig), np.arange(1, m + 1), side="left")
-    want = torch.from_numpy(starts.astype(np.int32)).to(device)
-    for route, digits, fn in (
-            ("digit_hist[hist]", dig, hist.segment_starts_hist),
-            ("digit_hist[hist_cols]", np.sort(dig),
-             hist.segment_starts_hist_cols)):
-        d = torch.from_numpy(digits).to(device)
-        check(route, hist.digit_hist(d, m), hist.digit_hist_plain(d, m))
-        if not torch.equal(fn(d, m), want):
-            failed[route].append("searchsorted")
+    for m in (1 << 15, (1 << 16) - 1):
+        dig = rng.randint(0, m + 2, size=(3, 2048 * 8)).astype(np.int32)
+        dig[1, :4096] = 5  # a heavy bin
+        srt = np.sort(dig, axis=1)
+        starts = np.stack([np.searchsorted(row, np.arange(1, m + 1),
+                                           side="left") for row in srt])
+        want = torch.from_numpy(starts.astype(np.int32)).to(device)
+        for route, digits, fn in (
+                ("digit_hist[hist]", dig[0], hist.segment_starts_hist),
+                ("digit_hist[hist_cols]", srt[0],
+                 hist.segment_starts_hist_cols),
+                ("digit_hist[group]", dig, hist.segment_starts_hist)):
+            d = torch.from_numpy(np.ascontiguousarray(digits)).to(device)
+            bad = failed.setdefault(route, [])
+            if not same(hist.digit_hist(d, m), hist.digit_hist_plain(d, m)):
+                bad.append(f"plain at m = {m}")
+            if not torch.equal(fn(d, m), want[0] if d.dim() == 1 else want):
+                bad.append(f"searchsorted at m = {m}")
     return failed
 
 

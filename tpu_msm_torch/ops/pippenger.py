@@ -9,9 +9,9 @@ bucket_b = X(s_{b+1}) - X(s_b), each window sum telescopes:
 Two routes compute the window sums, as in the JAX package:
 
 * the fused route (`_fused_sums`): `_window_heavy` per group of windows
-  (`window_group_size`; one stable sort carrying the packed coordinates and
-  one scan launch for the group, then per window the histogram kernel and
-  one gather of the prefix sums at the bucket boundaries), then
+  (`window_group_size`; for the group one stable sort carrying the packed
+  coordinates, one scan launch, one histogram launch and one gather of the
+  prefix sums at the bucket boundaries), then
   `_sides_batched` over all windows (inter-lane carries, the X(s_b) fold
   and rolled tree, the window_tail kernel);
 * the per-window route (`_per_window_sums`, the JAX package's `_msm_window`
@@ -51,7 +51,7 @@ import dataclasses
 
 import torch
 
-from tpu_msm_torch.ops import curve, field, glv, hist
+from tpu_msm_torch.ops import curve, field, glv, hist, u256
 from tpu_msm_torch.ops.cuda_curve import (fold_add, horner, padd, pmadd,
                                           scan_madd, window_tail)
 from tpu_msm_torch.ops.curve import AffinePoint, ProjPoint
@@ -97,7 +97,9 @@ def fused_route(lanes: int) -> bool:
 def window_digits(scalar_limbs: torch.Tensor, cfg: MsmConfig) -> torch.Tensor:
     """(16, N) standard-form scalar limbs -> (W', N) unsigned window digits
     (W' = cfg.num_windows() rows, at most the 256 bits the limbs hold). With
-    c = 16 the digits are the limbs; with c = 8 they are limb halves."""
+    c = 16 the digits are the limbs; with c = 8 they are limb halves; any
+    other c takes bits [i·c, i·c + c) of every scalar (`u256.extract_bits`,
+    `pippenger.py:117-119`)."""
     c = cfg.window_bits
     w = cfg.num_windows()
     if c == 16:
@@ -107,7 +109,9 @@ def window_digits(scalar_limbs: torch.Tensor, cfg: MsmConfig) -> torch.Tensor:
         hi = scalar_limbs >> 8
         return torch.stack([lo, hi], dim=1).reshape(
             2 * scalar_limbs.shape[0], scalar_limbs.shape[1])[:w]
-    raise ValueError(f"window_bits must be 8 or 16, got {c}")
+    return torch.stack([u256.extract_bits(scalar_limbs, i * c,
+                                          min(c, 256 - i * c))
+                        for i in range(w)])
 
 
 def signed_window_digits(scalar_limbs: torch.Tensor, cfg: MsmConfig):
@@ -182,56 +186,70 @@ def window_group_size(w: int, n_pad: int, device) -> int:
 
 
 def _segment_starts(digits, m: int, cfg: MsmConfig):
-    """s_b = #{i : digits[i] < b} for b = 1..m by cfg.segment_starts
-    (`pippenger.py:239-247`): "hist" counts the digits in any order,
-    "hist_cols" is handed the sorted digits; both run the digit_hist
-    kernel."""
+    """s_b = #{i : digits[g, i] < b} for b = 1..m of each of G windows,
+    (G, n) -> (G, m) int32, by cfg.segment_starts (`pippenger.py:239-268`).
+    "hist" counts the digits in any order (the unsorted ones on the fused
+    route); every other value is handed the SORTED digits, as the JAX
+    pipeline hands them. "hist" and "hist_cols" run the digit_hist kernel,
+    one launch for the G windows; "bincount" counts by torch.bincount and
+    sums; "ss_scan", "ss_sort" and "ss_2level" search 1..m in each row with
+    torch.searchsorted (the JAX package's three search schedules for the
+    TPU give the same exact starts)."""
+    if cfg.segment_starts == "hist":
+        return hist.segment_starts_hist(digits, m)
     if cfg.segment_starts == "hist_cols":
         return hist.segment_starts_hist_cols(digits, m)
-    return hist.segment_starts_hist(digits, m)
+    g = digits.shape[0]
+    if cfg.segment_starts == "bincount":
+        # One bincount for the group: row g's digit d counts at g·(m+2) + d.
+        flat = digits.to(torch.int64) + (m + 2) * torch.arange(
+            g, device=digits.device)[:, None]
+        counts = torch.bincount(flat.reshape(-1), minlength=g * (m + 2))
+        return torch.cumsum(counts.view(g, m + 2)[:, :m], dim=1,
+                            dtype=torch.int32)
+    bvals = torch.arange(1, m + 1, dtype=digits.dtype,
+                         device=digits.device).repeat(g, 1)
+    return torch.searchsorted(digits, bvals, side="left", out_int32=True)
 
 
 def _window_heavy(digits, negm, ppx, ppy, n: int, cfg: MsmConfig):
-    """The heavy stages of a group of G windows: one sort and one scan
-    launch for the group, then per window the histogram and the boundary
-    gather. digits, negm: (G, n_pad) rows of the group's windows (negm
+    """The heavy stages of a group of G windows, each stage once for the
+    group: the sort and the scan launch, the segment starts (one digit_hist
+    launch with "hist"), and one gather of the prefix sums at the bucket
+    boundaries. digits, negm: (G, n_pad) rows of the group's windows (negm
     None for unsigned digits); ppx, ppy as `_sorted_scan_inputs` takes them.
 
-    Returns one tuple of small arrays per window: the lane totals
-    (48, lanes), the prefix sums at the m+1 queries s_1..s_m, n (48, m+1),
-    the query lanes and the zero-query mask. The group's O(G·n) transients
-    are alive together and die here, before the next group starts:
-    GROUP_BYTES_PER_POINT (268) bytes a point and window, the sorted digits
-    and payload, the sort's int64 permutation and the 48-row scan output,
-    which `window_group_size` keeps within 1/8 of the card's memory (about
-    4.5 GB for 16 windows at 2^20; at 2^24 a group of two windows holds
-    about 9 GB). So the port runs every size unstreamed."""
+    Returns the group's small arrays, stacked: the lane totals
+    (G, 48, lanes), the prefix sums at the m+1 queries s_1..s_m, n
+    (G, 48, m+1), the query lanes and the zero-query mask (G, m+1). The
+    group's O(G·n) transients are alive together and die here, before the
+    next group starts: GROUP_BYTES_PER_POINT (268) bytes a point and window,
+    the sorted digits and payload, the sort's int64 permutation and the
+    48-row scan output, which `window_group_size` keeps within 1/8 of the
+    card's memory (about 4.5 GB for 16 windows at 2^20; at 2^24 a group of
+    two windows holds about 9 GB). So the port runs every size unstreamed."""
     m = cfg.buckets_per_window()
+    g = digits.shape[0]
     lanes = cfg.scan_lanes
     steps = digits.shape[1] // lanes
     sorted_digits, sgx, sgy = _sorted_scan_inputs(digits, negm, ppx, ppy,
                                                   lanes, steps)
-    ys = scan_madd(sgx, sgy)  # (G, 48, steps, lanes), one launch
+    ys = scan_madd(sgx, sgy).view(g, 48, steps * lanes)  # one launch
     del sgx, sgy
-    smalls = []
-    for g in range(digits.shape[0]):
-        ys48 = ys[g].view(48, steps * lanes)
-        # "hist" is order-free: it counts the unsorted digits.
-        starts = _segment_starts(
-            digits[g] if cfg.segment_starts == "hist" else sorted_digits[g],
-            m, cfg)
-        queries = torch.cat([starts, starts.new_full((1,), n)])
-        is_zero = queries == 0
-        pos = queries.clamp(min=1) - 1
-        lq = pos // steps
-        kq = pos % steps
-        # Column k*lanes + l of the flat prefix array is step k of lane l.
-        loc48 = ys48.index_select(1, (kq * lanes + lq).to(torch.int64))
-        # A copy, not a view: a view would keep the group's whole prefix
-        # array alive until the sides stage (16 x 201 MB at 2^20).
-        totals = ys48[:, (steps - 1) * lanes:].clone()
-        smalls.append((totals, loc48, lq, is_zero))
-    return smalls
+    # "hist" is order-free: it counts the unsorted digits.
+    starts = _segment_starts(
+        digits if cfg.segment_starts == "hist" else sorted_digits, m, cfg)
+    queries = torch.cat([starts, starts.new_full((g, 1), n)], dim=1)
+    is_zero = queries == 0
+    pos = queries.clamp(min=1) - 1
+    lq = pos // steps
+    # Column k*lanes + l of the flat prefix array is step k of lane l.
+    flat = ((pos % steps) * lanes + lq).to(torch.int64)
+    loc48 = torch.gather(ys, 2, flat[:, None].expand(g, 48, m + 1))
+    # A copy, not a view: a view would keep the group's whole prefix
+    # array alive until the sides stage (16 x 201 MB at 2^20).
+    totals = ys[:, :, (steps - 1) * lanes:].clone()
+    return totals, loc48, lq, is_zero
 
 
 def _win_roll(a, wins: int, sh: int, seg: int):
@@ -251,8 +269,8 @@ def _window_tail(x_n: ProjPoint, sum_starts: ProjPoint,
 
 def _sides_batched(totals48, loc48, lq, is_zero, cfg: MsmConfig) -> ProjPoint:
     """All windows' side stages as full-width batched ops
-    (`pippenger.py:374-482`). Inputs are the stacked per-window outputs of
-    _window_heavy: totals48 (W, 48, L), loc48 (W, 48, Q), lq (W, Q),
+    (`pippenger.py:374-482`). Inputs are _window_heavy's outputs of all
+    groups, concatenated: totals48 (W, 48, L), loc48 (W, 48, Q), lq (W, Q),
     is_zero (W, Q). Returns (W, 16, 1) window sums."""
     w, _, lanes = totals48.shape
     q = loc48.shape[-1]
@@ -410,7 +428,7 @@ def _msm_window(digits, negm, px, py, n: int, cfg: MsmConfig) -> ProjPoint:
         lane_idx >= 1, ProjPoint(*(torch.roll(a, 1, dims=-1) for a in inc)),
         curve.proj_infinity((lanes,), dev))  # exclusive lane carries
 
-    starts = _segment_starts(sorted_digits, m, cfg)
+    starts = _segment_starts(sorted_digits[None], m, cfg)[0]
     queries = torch.cat([starts, starts.new_full((1,), n)])  # s_1..s_m, n
     is_zero = queries == 0
     pos = queries.clamp(min=1).to(torch.int64) - 1
@@ -499,12 +517,11 @@ def _fused_sums(points: AffinePoint, scalar_limbs, cfg: MsmConfig) -> ProjPoint:
         ppy = torch.cat([ppy, _pad_cols(pack_u16_rows(y_neg), n_pad - n, 0)],
                         dim=1)
     group = window_group_size(w, n_pad, digits.device)
-    smalls = []
-    for s in range(0, w, group):
-        smalls += _window_heavy(digits[s:s + group],
-                                None if negm is None else negm[s:s + group],
-                                ppx, ppy, n, cfg)
-    return _sides_batched(*(torch.stack(s) for s in zip(*smalls)), cfg=cfg)
+    smalls = [_window_heavy(digits[s:s + group],
+                            None if negm is None else negm[s:s + group],
+                            ppx, ppy, n, cfg)
+              for s in range(0, w, group)]
+    return _sides_batched(*(torch.cat(s) for s in zip(*smalls)), cfg=cfg)
 
 
 def _per_window_sums(points: AffinePoint, scalar_limbs,

@@ -1,7 +1,7 @@
 """256-bit limb arithmetic on torch tensors: the limb ops the plain field
 and the GLV split need (counterpart of the matching parts of
 `tpu_msm/ops/u256.py`: `add`/`sub` with carry out, `geq`, `test_bit`,
-`mul_const`, and `const` for its `from_const`).
+`extract_bits`, `mul_const`, and `const` for its `from_const`).
 
 A value is a (k, *batch) integer tensor of little-endian 16-bit limbs,
 limbs first (k = 16 for a 256-bit value). Any signed integer dtype with room
@@ -71,6 +71,27 @@ def test_bit(a, k: int):
     """Bit k of each batch element (0 or 1)."""
     limb, bit = divmod(k, LIMB_BITS)
     return (a[limb] >> bit) & 1
+
+
+# The widest field extract_bits takes: two adjacent limbs hold any 17 bits
+# (the JAX package asserts the same bound).
+EXTRACT_MAX_BITS = LIMB_BITS + 1
+
+
+def extract_bits(a, start: int, width: int):
+    """Bits [start, start + width) of each batch element, 0 < width <=
+    EXTRACT_MAX_BITS (`tpu_msm/ops/u256.py:278-290`). The high limb is
+    masked before its shift, so the result stays below 2^width in any
+    integer dtype."""
+    if not 0 < width <= EXTRACT_MAX_BITS:
+        raise ValueError(f"extract_bits takes 1 to {EXTRACT_MAX_BITS} bits, "
+                         f"got {width}")
+    limb, bit = divmod(start, LIMB_BITS)
+    v = a[limb] >> bit
+    low = LIMB_BITS - bit  # bits that the first limb gives
+    if low < width and limb + 1 < a.shape[0]:
+        v = v | ((a[limb + 1] & ((1 << (width - low)) - 1)) << low)
+    return v & ((1 << width) - 1)
 
 
 def mul_const(a, b_int: int, n_out: int):

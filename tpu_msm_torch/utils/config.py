@@ -3,11 +3,11 @@
 
 The JAX package's knobs that only chose a TPU schedule are gone:
 `field_impl` (the CUDA kernels have one field core), `scan_step_batch`,
-`window_batch`, `backend` (the tensor's device decides) and the
-`segment_starts` options other than the two histograms. `select_config`
-reads the port's own autotune table (`utils/autotune.py`, rows measured on
-the H100 and keyed by "cuda") and falls back to the JAX package's size
-heuristic.
+`window_batch`, `backend` (the tensor's device decides) and `sort_impl`.
+`window_bits` and `segment_starts` take every value the JAX package takes.
+`select_config` reads the port's own autotune table (`utils/autotune.py`,
+rows measured on the H100 and keyed by "cuda") and falls back to the JAX
+package's size heuristic.
 """
 
 from __future__ import annotations
@@ -16,14 +16,24 @@ from dataclasses import dataclass
 
 import torch
 
+from tpu_msm_torch.ops.u256 import EXTRACT_MAX_BITS
+
+SEGMENT_STARTS = ("bincount", "ss_scan", "ss_sort", "ss_2level", "hist",
+                  "hist_cols")
+
 
 @dataclass(frozen=True)
 class MsmConfig:
     """Static configuration of the Pippenger pipeline. The defaults are the
-    tuned 2^20 row: c = 16 signed windows, 4096 scan lanes, fanout 2048."""
+    JAX package's large-size TPU row (c = 16 signed windows, 4096 scan
+    lanes, fanout 2048), not the port's tuned row: `select_config` reads
+    that from the autotune table (on the H100, c = 16 unsigned and 8192
+    lanes at 2^16-2^20, fanout 2048 up to 2^18 and 1024 at 2^20)."""
 
-    # Window size in bits; 16 and 8 align digits with the u16 limbs, so
-    # digit extraction is a limb slice (other widths are not ported).
+    # Window size in bits, 1 to 17 (`u256.EXTRACT_MAX_BITS`, the widest
+    # field the JAX package's digit extraction takes). With 16 and 8 the
+    # digits are the u16 limbs or their halves; other widths are extracted
+    # bit by bit (`pippenger.window_digits`).
     window_bits: int = 16
     # Independent lanes of the per-window prefix scan (one CUDA thread each).
     scan_lanes: int = 4096
@@ -34,10 +44,15 @@ class MsmConfig:
     # Balanced digits in [-2^(c-1), 2^(c-1)]: half the buckets, and the
     # M·X(n) term becomes c-1 doublings.
     signed_digits: bool = True
-    # Bucket segment starts from the digit histogram (ops/hist.py): "hist"
-    # counts the unsorted digits on the fused path, "hist_cols" the sorted
-    # ones, as the JAX pipeline feeds its two histogram kernels. The
-    # per-window path counts the sorted digits either way.
+    # How the bucket segment starts s_b are found (`pippenger._segment_starts`,
+    # the JAX package's six values): "hist" counts the unsorted digits with
+    # the digit_hist kernel on the fused path, "hist_cols" the sorted ones,
+    # as the JAX pipeline feeds its two histogram kernels (the per-window
+    # path counts the sorted digits either way); "bincount" is
+    # torch.bincount of the sorted digits and a cumsum; "ss_scan",
+    # "ss_sort" and "ss_2level" are torch.searchsorted of 1..m in the
+    # sorted digits (the JAX package's three search schedules for the TPU).
+    # All give the same exact starts.
     segment_starts: str = "hist"
     # GLV split (ops/glv.py): each scalar becomes two signed halves below
     # 2^127 and the points are doubled with phi(P) = (BETA·x, y), so the
@@ -46,10 +61,10 @@ class MsmConfig:
     glv: bool = False
 
     def __post_init__(self):
-        if self.window_bits not in (8, 16):
-            raise ValueError(
-                f"window_bits must be 8 or 16, got {self.window_bits}")
-        if self.segment_starts not in ("hist", "hist_cols"):
+        if not 1 <= self.window_bits <= EXTRACT_MAX_BITS:
+            raise ValueError(f"window_bits must be 1 to {EXTRACT_MAX_BITS}, "
+                             f"got {self.window_bits}")
+        if self.segment_starts not in SEGMENT_STARTS:
             raise ValueError(
                 f"unknown segment_starts {self.segment_starts!r}")
         for name in ("scan_lanes", "reduce_fanout", "scalar_bits"):
