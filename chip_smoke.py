@@ -29,7 +29,24 @@ C++ engine's result exactly:
   * the options the tuned row does not take (phase 10): `msm_device` at
     2^20 with c = 13 signed windows and at 2^16 with
     segment_starts="bincount" and "ss_scan", each against the tuned row's
-    result.
+    result;
+  * the streamed route (phase 11): `msm_best` at 2^24 from numpy limb
+    arrays (the 512 bench points tiled, scalars below 2^253) in chunks of
+    2^22, its chunks and launches asserted, against the MSM folded onto
+    the 512 base points (`benches/dispatch_benchmark.tiled_expected`);
+    every kernel the route launches held against its plain version at
+    each shape it launches it at; the same inputs through `msm_streamed`
+    resident and host-streamed (bit-identical) and unstreamed
+    `msm_device`, timed, with peak memory and G;
+  * the card + CPU split (phase 12): `hybrid.msm_hybrid` at 2^20 at shares
+    1/3, 1/2, 2/3 and 1.0, each timed beside `msm` alone;
+  * the golden vectors (phase 13): every MSM case of
+    tests/vectors/bn254_golden.json through `msm` on the card;
+  * limb tensors on the card (phase 14): `msm` and `msm_best` on (16, 2^20)
+    int32 CUDA tensors, with and without the zero filter.
+
+Phase 5 also runs the CLI's `22 1 stream 1` and `20 1 hybrid 1`, each of
+which holds its result against the native engine.
 
 Phase 2 holds the histogram in each of its regimes (ops/hist.py, `plan`)
 against its plain version and times the two regimes for the tuned row's
@@ -407,18 +424,19 @@ def phase_build():
     _build.load()
 
 
-def main_shapes(dev):
-    """The shapes the main path gives the kernels at n = 2^20: the tuned
-    row's scan lanes and steps, windows, the windows a scan launch takes
-    (g), buckets (m, padded to m_pad), fold fanout, window bits and digit
-    sign, for the 2n points of 127-bit halves when it splits by GLV."""
+def main_shapes(dev, log_n=20):
+    """The shapes the main path gives the kernels at n = 2^log_n (2^20; a
+    streamed chunk's too): the selected row's scan lanes and steps,
+    windows, the windows a scan launch takes (g), buckets (m, padded to
+    m_pad), fold fanout, window bits and digit sign, for the 2n points of
+    127-bit halves when it splits by GLV."""
     import dataclasses
 
     from tpu_msm_torch import select_config
     from tpu_msm_torch.ops import pippenger
 
-    cfg = select_config(1 << 20, dev)
-    n = 1 << 20
+    n = 1 << log_n
+    cfg = select_config(n, dev)
     if cfg.glv:
         n, cfg = 2 * n, dataclasses.replace(cfg, glv=False, scalar_bits=127)
     m = cfg.buckets_per_window()
@@ -1222,14 +1240,27 @@ def phase_profile(dev, inputs):
 
 
 def phase_cli():
-    """The profiler CLI in subprocesses: --check-kernels and `20 1 check 1`,
-    with the fixture cache in a temporary directory. Returns the launches
-    --check-kernels logged."""
+    """The profiler CLI in subprocesses: --check-kernels, `20 1 check 1`,
+    `22 1 stream 1` and `20 1 hybrid 1` (each of the last two holds its
+    result against the native engine), with the fixture cache in a
+    temporary directory. Returns the launches --check-kernels logged."""
+    from tpu_msm_torch.utils import preprocess
+
     root = Path(__file__).resolve().parent
     launches = None
     with tempfile.TemporaryDirectory() as cache:
         env = dict(os.environ, TPU_MSM_CACHE_DIR=cache)
-        for args in (["--check-kernels"], ["20", "1", "check", "1"]):
+        # The 2^22 fixture the stream mode reads, written here uncompressed:
+        # the CLI's own compressed write takes minutes at that size, and
+        # np.load reads either form.
+        path = Path(cache) / "msm_vecs" / "msm_22x1.npz"
+        path.parent.mkdir(parents=True)
+        [inst] = preprocess.generate_msm_instances(22, 1)
+        np.savez(path, px0=inst.px, py0=inst.py, s0=inst.scalars,
+                 num=np.array([1]))
+        del inst
+        for args in (["--check-kernels"], ["20", "1", "check", "1"],
+                     ["22", "1", "stream", "1"], ["20", "1", "hybrid", "1"]):
             t0 = time.perf_counter()
             proc = subprocess.run(
                 [sys.executable, "-m", "tpu_msm_torch.cli.profiler", *args],
@@ -1238,13 +1269,18 @@ def phase_cli():
             lines = proc.stderr.splitlines()
             for line in lines:
                 if " kernel " in line or "Execution" in line or "==" in line:
-                    log(5, line.split(" INFO ")[-1].split(" ERROR ")[-1])
+                    log(5, f"{' '.join(args)}: "
+                        + line.split(" INFO ")[-1].split(" ERROR ")[-1])
                 if "kernel launches " in line:
                     launches = json.loads(line.split("kernel launches ", 1)[1])
             if proc.returncode != 0:
                 raise AssertionError(f"profiler {' '.join(args)}: rc "
                                      f"{proc.returncode}\n" + proc.stdout
                                      + "\n".join(lines[-40:]))
+            if args[2:3] in (["stream"], ["hybrid"]) and not any(
+                    f"{args[2]} == cpu" in line for line in lines):
+                raise AssertionError(f"profiler {' '.join(args)}: no check "
+                                     f"against the native engine logged")
             log(5, f"profiler {' '.join(args)}: rc 0 in "
                 f"{time.perf_counter() - t0:.1f} s")
     if launches is None or any(v == 0 for v in launches.values()):
@@ -1416,6 +1452,304 @@ def phase_options(dev, inputs, expected):
             f"{times['change']:.3f} ms, the tuned row {times['tuned']:.3f} ms")
 
 
+# --------------------------------------------------------------------------
+# The single-card surface beyond msm_device: streaming, hybrid, the golden
+# vectors, limb tensors on the card.
+# --------------------------------------------------------------------------
+
+STREAM_LOG = 24
+
+
+class RouteSpy:
+    """While active, wraps the kernel wrappers the fused route calls
+    (pippenger's imports of cuda_curve's scan_madd, padd, fold_add,
+    window_tail and horner; hist.digit_hist, which the segment starts call)
+    and records, for each kernel and input shape, the launches its calls
+    made and a copy of the first call's inputs. padd and fold_add are
+    recorded under the kernel their rule took (padd or padd_group, ...).
+    The wrappers count their launches as before."""
+
+    def __init__(self):
+        from tpu_msm_torch.ops import hist, pippenger
+
+        self.targets = [(pippenger, name) for name in (
+            "scan_madd", "padd", "fold_add", "window_tail", "horner")]
+        self.targets.append((hist, "digit_hist"))
+        self.calls = {}  # (kernel, shape) -> {"launches": k, "args": ...}
+
+    class _Spy:
+        """Calls fn and records the call; reads and writes of its counters
+        (`digit_hist.launches += 1` inside hist.py names the module's
+        attribute, which is the spy while it is active) go to fn."""
+
+        def __init__(self, route, name, fn):
+            object.__setattr__(self, "_parts", (route, name, fn))
+
+        def __getattr__(self, attr):
+            return getattr(self._parts[2], attr)
+
+        def __setattr__(self, attr, value):
+            setattr(self._parts[2], attr, value)
+
+        def __call__(self, *args, **kw):
+            import torch
+
+            route, name, fn = self._parts
+            before = (fn.launches, getattr(fn, "group_launches", 0))
+            out = fn(*args, **kw)
+            launched = fn.launches - before[0]
+            group = getattr(fn, "group_launches", 0) - before[1]
+            kernel = f"{name}_group" if group else name
+            shape = [*args[0].shape] + [a for a in args[1:]
+                                        if not isinstance(a, torch.Tensor)]
+            rec = route.calls.setdefault((kernel, str(shape)), {
+                "launches": 0, "args": tuple(
+                    a.clone() if isinstance(a, torch.Tensor) else a
+                    for a in args)})
+            rec["launches"] += launched
+            return out
+
+    def __enter__(self):
+        self.saved = [(mod, name, getattr(mod, name))
+                      for mod, name in self.targets]
+        for mod, name, fn in self.saved:
+            setattr(mod, name, self._Spy(self, name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def check_route(phase, entries, calls):
+    """Each kernel the route launched, at each shape it launched it at,
+    against its plain version on the inputs of its first call there,
+    bit for bit; the scan on its first 8 steps (a prefix scan's first
+    steps depend on nothing after them). Returns {kernel: [{"shape",
+    "launches"}]}."""
+    from tpu_msm_torch.ops import cuda_curve as cc
+    from tpu_msm_torch.ops import hist
+
+    check = checker(entries, phase)
+    by_kernel = {}
+    for (kernel, shape), rec in sorted(calls.items()):
+        args = rec["args"]
+        base = kernel.removesuffix("_group")
+        path = ({"path": "group" if kernel.endswith("_group") else "thread"}
+                if base in ("padd", "fold_add") else {})
+        label = f"{shape}, {rec['launches']} launches"
+        if base == "scan_madd":
+            head = [a[:, :, :8].contiguous() for a in args]
+            check(kernel, f"{label}, first 8 steps",
+                  cc.scan_madd(*args)[:, :, :8].contiguous(),
+                  cc.scan_madd_plain(*head))
+        elif base == "digit_hist":
+            check(kernel, label, hist.digit_hist(*args),
+                  hist.digit_hist_plain(*args))
+        else:
+            check(kernel, label, getattr(cc, base)(*args, **path),
+                  getattr(cc, f"{base}_plain")(*args))
+        by_kernel.setdefault(kernel, []).append(
+            {"shape": shape, "launches": rec["launches"]})
+    return by_kernel
+
+
+def phase_stream(dev, entries):
+    """msm_best at 2^24 from numpy limb arrays (bench.py's 512 points tiled,
+    scalars drawn in numpy below 2^253) through the streamed route, against
+    the MSM folded onto the 512 base points by the native engine
+    (`benches/dispatch_benchmark.tiled_expected`); the chunks and the
+    launches of the route asserted. Then the same inputs as tensors on the
+    card through msm_streamed (resident), where every kernel the route
+    launches is held against its plain version at each shape it launches it
+    at (RouteSpy, check_route); from numpy through msm_streamed
+    host-streamed (the pinned staging buffers), bit-identical to the
+    resident call; and through msm_device unstreamed; each equal to the
+    reference, with their times, peak memory and G. Returns the streamed
+    call's launches."""
+    import torch
+
+    import tpu_msm_torch
+    from tpu_msm_torch.benches import dispatch_benchmark as db
+    from tpu_msm_torch.ops import streaming
+    from tpu_msm_torch.utils import interop
+
+    n = 1 << STREAM_LOG
+    t0 = time.perf_counter()
+    px, py, sl, base = db.tiled_inputs(n, SEED)
+    expected = db.tiled_expected(base, sl)
+    log(11, f"2^{STREAM_LOG} inputs and the 512-point reference in "
+        f"{time.perf_counter() - t0:.1f} s")
+    chunk_log = tpu_msm_torch.STREAM_THRESHOLD.bit_length() - 1
+    chunks = -(-n // (1 << chunk_log))
+    sh = main_shapes(dev, chunk_log)
+    groups = -(-sh["w"] // sh["g"])
+    if n <= tpu_msm_torch.STREAM_THRESHOLD:
+        raise AssertionError("2^24 does not exceed STREAM_THRESHOLD")
+
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    dt = db.host_seconds(lambda: expected_is(
+        tpu_msm_torch.msm_best(sl, (px, py), device=dev), expected,
+        "msm_best 2^24 (streamed)"))
+    peak = torch.cuda.max_memory_allocated()
+    launches = read_counts(11, MAIN_KERNELS)
+    want = {"scan_madd": chunks * groups, "window_tail": chunks, "horner": 1}
+    if tpu_msm_torch.select_config(1 << chunk_log, dev).segment_starts in (
+            "hist", "hist_cols"):
+        want["digit_hist"] = chunks * groups
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"streamed msm_best at 2^{STREAM_LOG}: "
+                             f"launches {launches}, expected {want}")
+    log(11, f"msm_best n=2^{STREAM_LOG} == the 512-point reference (affine, "
+        f"exact) through the streamed route: {chunks} chunks of "
+        f"2^{chunk_log}, G = {sh['g']} of {sh['w']} windows, scan and "
+        f"digit_hist launches {launches['scan_madd']} and "
+        f"{launches['digit_hist']} ({chunks} x {groups}); {dt:.4f} s from "
+        f"numpy -> {n / dt:.1f} points/s; peak max_memory_allocated "
+        f"{peak / 2**20:.1f} MiB")
+
+    d = interop.limbs_to_device(px, py, sl, dev)
+    with RouteSpy() as spy:
+        resident = streaming.msm_streamed(*d, chunk_log=chunk_log, device=dev)
+    expected_is(affine(resident), expected,
+                f"msm_streamed 2^{STREAM_LOG} resident, kernels recorded")
+    shapes = check_route(11, entries, spy.calls)
+    del spy
+    own = {k: v - launches.get(SHARED_COUNTS.get(k), 0)
+           for k, v in launches.items()}
+    for kernel, v in own.items():
+        total = sum(r["launches"] for r in shapes.get(kernel, []))
+        if total != v:
+            raise AssertionError(f"{kernel}: {total} launches recorded by "
+                                 f"shape, {v} in the msm_best call")
+    for kernel, recs in shapes.items():
+        entries[kernel]["stream_shapes"] = recs
+    log(11, f"every kernel of the streamed route == its plain version at "
+        f"each shape it launched it at: "
+        f"{json.dumps({k: [[r['shape'], r['launches']] for r in v] for k, v in shapes.items()})}")
+
+    cfg = tpu_msm_torch.select_config(n, dev)
+    full = main_shapes(dev, STREAM_LOG)
+    runs = {"streamed, resident tensors": lambda: streaming.msm_streamed(
+                *d, chunk_log=chunk_log, device=dev),
+            "streamed, host-streamed from numpy": lambda:
+                streaming.msm_streamed(px, py, sl, chunk_log=chunk_log,
+                                       resident=False, device=dev),
+            "unstreamed msm_device": lambda: tpu_msm_torch.msm_device(
+                *d, cfg)}
+    for name, fn in runs.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        res = fn()
+        expected_is(affine(res), expected, f"{name} 2^{STREAM_LOG}")
+        if name.startswith("streamed") and not all(
+                torch.equal(a, b) for a, b in zip(res, resident)):
+            raise AssertionError(f"{name}: projective limbs differ from the "
+                                 f"resident call's")
+        peak = torch.cuda.max_memory_allocated()
+        times = [db.host_seconds(fn) for _ in range(2)]
+        log(11, f"{name} n=2^{STREAM_LOG} == the 512-point reference"
+            + ("; projective limbs == the resident call's"
+               if name.startswith("streamed") else "")
+            + f"; {[round(t * 1e3, 3) for t in times]} ms; peak "
+            f"max_memory_allocated {peak / 2**20:.1f} MiB; G = "
+            + (f"{sh['g']} of {sh['w']} windows (a chunk)"
+               if name.startswith("streamed") else
+               f"{full['g']} of {full['w']} windows"))
+    return launches
+
+
+def expected_is(got, want, what):
+    if got != want:
+        raise AssertionError(f"{what}: {got} != {want}")
+    return got
+
+
+def phase_hybrid(dev, inputs, expected):
+    """hybrid.msm_hybrid at 2^20 at the ladder's shares 1/3, 1/2, 2/3 and at
+    1.0, each equal to the native engine and timed on the host clock beside
+    msm alone on the same inputs."""
+    import tpu_msm_torch
+    from tpu_msm_torch.benches import dispatch_benchmark as db
+    from tpu_msm_torch.hybrid import msm_hybrid
+
+    px, py, sl = inputs[20]
+    reset_counts()
+    for share in (1 / 3, 1 / 2, 2 / 3, 1.0):
+        dt = db.host_seconds(lambda: expected_is(
+            msm_hybrid(px, py, sl, share=share, device=dev), expected[20],
+            f"hybrid share {share:.4f}"))
+        log(12, f"msm_hybrid n=2^20 share {share:.4f} == native engine "
+            f"(affine, exact) in {dt:.4f} s")
+    read_counts(12, ("scan_madd", "padd", "window_tail", "horner"))
+    alone = [db.host_seconds(lambda: expected_is(
+        tpu_msm_torch.msm((px, py), sl, device=dev), expected[20], "msm"))
+        for _ in range(3)]
+    log(12, f"msm n=2^20 alone: {[round(t, 4) for t in alone]} s")
+
+
+# tests/test_golden_vectors.py's configurations, in the JAX MsmConfig's
+# defaults (unsigned digits, fanout 4096, "bincount") where not stated.
+GOLDEN_JAX_DEFAULTS = dict(reduce_fanout=4096, signed_digits=False,
+                           segment_starts="bincount")
+GOLDEN_CONFIGS = {"random_n64_c16": dict(window_bits=16, scan_lanes=8),
+                  "random_n1024": dict(window_bits=8, scan_lanes=64,
+                                       signed_digits=True)}
+
+
+def phase_golden(dev):
+    """Every MSM case of tests/vectors/bn254_golden.json (a second,
+    independent implementation's) through msm on the card, with the JAX
+    package's golden-vector test's configuration, equal to its result."""
+    from tpu_msm_torch import msm
+    from tpu_msm_torch.utils.config import MsmConfig
+
+    path = Path(__file__).resolve().parent / "tests" / "vectors" \
+        / "bn254_golden.json"
+    golden = json.loads(path.read_text())
+    reset_counts()
+    for case in golden["msm_cases"]:
+        kw = dict(GOLDEN_JAX_DEFAULTS, **GOLDEN_CONFIGS.get(
+            case["name"], dict(window_bits=8, scan_lanes=8)))
+        cfg = MsmConfig(**kw)
+        scalars = [int(s, 16) for s in case["scalars"]]
+        points = [None if p is None else (int(p[0], 16), int(p[1], 16))
+                  for p in case["points"]]
+        want = (None if case["result"] is None else
+                tuple(int(v, 16) for v in case["result"]))
+        expected_is(msm(points, scalars, cfg, device=dev), want,
+                    f"golden {case['name']}")
+        log(13, f"golden {case['name']} (n = {len(scalars)}, {kw}) == the "
+            f"fixture's result")
+    read_counts(13, ("pmadd", "padd", "window_tail", "horner"))
+
+
+def phase_tensors(dev, inputs, expected):
+    """(16, N) int32 limb tensors already on the card through msm and
+    msm_best at 2^20, and with half the scalars zero (msm_best's filter
+    runs on the card), each equal to the native engine."""
+    import tpu_msm_torch
+    from tpu_msm_torch.bindings import native
+    from tpu_msm_torch.utils import interop
+
+    px, py, sl = inputs[20]
+    dpx, dpy, dsl = interop.limbs_to_device(px, py, sl, dev)
+    reset_counts()
+    expected_is(tpu_msm_torch.msm((dpx, dpy), dsl, device=dev), expected[20],
+                "msm on card tensors")
+    expected_is(tpu_msm_torch.msm_best(dsl, (dpx, dpy), device=dev),
+                expected[20], "msm_best on card tensors")
+    half = sl.copy()
+    half[:, ::2] = 0
+    dhalf = interop.limbs_to_device(half, half, half, dev)[0]
+    expected_is(tpu_msm_torch.msm_best(dhalf, (dpx, dpy), device=dev),
+                native.msm(px, py, half), "msm_best on card tensors, half 0")
+    read_counts(14, MAIN_KERNELS)
+    log(14, "msm and msm_best on (16, 2^20) int32 tensors on the card == "
+        "native engine, with and without the zero filter")
+
+
 EC = "tpu_msm_torch/csrc/ec_kernels.cu"
 PC = "tpu_msm/ops/pallas_curve.py"
 # name: (source, the TPU kernels it replaces, the path its launches count)
@@ -1499,6 +1833,14 @@ def main() -> int:
     lap(9)
     phase_options(dev, more, expected)
     lap(10)
+    stream_launches = phase_stream(dev, entries)
+    lap(11)
+    phase_hybrid(dev, inputs, expected)
+    lap(12)
+    phase_golden(dev)
+    lap(13)
+    phase_tensors(dev, inputs, expected)
+    lap(14)
     phase_profile(dev, more)
     lap(6)
 
@@ -1507,7 +1849,10 @@ def main() -> int:
                 "launches": launches[path][name] - (
                     launches[path][SHARED_COUNTS[name]]
                     if name in SHARED_COUNTS else 0),
-                "path": PATHS[path], **entries[name]}
+                "path": PATHS[path],
+                "stream_launches": stream_launches[name] - (
+                    stream_launches[SHARED_COUNTS[name]]
+                    if name in SHARED_COUNTS else 0), **entries[name]}
                for name, (source, replaces, path) in SOURCES.items()]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -99,8 +99,46 @@ def test_parallel_mode_function_on_cpu(small_inst, mode):
     assert profiler.run_parallel(small_inst, SMALL, mode, 2, "cpu") == want
 
 
+def test_stream_mode_function_on_cpu(small_inst):
+    """The stream mode's call at chunks of 2^4 (four chunks of 16)."""
+    want = native.msm(small_inst.px, small_inst.py, small_inst.scalars)
+    res = profiler.run_stream(small_inst, SMALL, "cpu", chunk_log=4)
+    assert profiler._affine(res) == want
+
+
+def test_hybrid_mode_function_on_cpu(small_inst):
+    want = native.msm(small_inst.px, small_inst.py, small_inst.scalars)
+    assert profiler.run_hybrid(small_inst, SMALL, "cpu") == want
+
+
+@pytest.fixture
+def cpu_card(monkeypatch, cache, small_inst):
+    """main's card modes on the CPU: the card is the CPU, the instances are
+    small_inst and the configuration SMALL."""
+    from tpu_msm_torch.utils import config
+
+    monkeypatch.setattr(profiler, "_card", lambda: torch.device("cpu"))
+    monkeypatch.setattr(preprocess, "get_or_create_msm_instances",
+                        lambda log_n, num: [small_inst])
+    monkeypatch.setattr(config, "select_config", lambda n, device=None: SMALL)
+
+
+@pytest.mark.parametrize("mode", ["stream", "hybrid"])
+def test_stream_and_hybrid_modes_check_against_native(cpu_card, mode,
+                                                      monkeypatch, caplog):
+    """The two modes hold their warm-up result against the native engine:
+    rc 0 and the line that says so where they agree, rc 1 where the engine
+    gives another point."""
+    caplog.set_level("INFO")
+    assert profiler.main(["6", "1", mode, "1"]) == 0
+    assert f"instance 0: {mode} == cpu" in caplog.text
+    monkeypatch.setattr(profiler, "run_cpu", lambda inst: oracle.GEN)
+    assert profiler.main(["6", "1", mode, "1"]) == 1
+    assert "MISMATCH at instance 0" in caplog.text
+
+
 def test_card_modes_refuse_to_run_without_a_card(cache, no_card):
-    for mode in ("gpu", "best", "check"):
+    for mode in ("gpu", "best", "check", "stream", "hybrid"):
         with pytest.raises(RuntimeError, match="CUDA device"):
             profiler.main(["6", "1", mode, "1"])
     with pytest.raises(RuntimeError, match="CUDA device"):
@@ -130,6 +168,7 @@ def test_kernel_check_routes_on_cpu():
 
 def test_import_leaves_jax_out():
     code = ("import sys, tpu_msm_torch.cli.profiler, tpu_msm_torch.cli.trace, "
+            "tpu_msm_torch.ops.streaming, tpu_msm_torch.hybrid, "
             "tpu_msm_torch.utils.preprocess, tpu_msm_torch.utils.oracle; "
             "assert 'jax' not in sys.modules, 'jax imported'")
     subprocess.run([sys.executable, "-c", code], check=True,

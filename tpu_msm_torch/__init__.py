@@ -7,10 +7,14 @@ reference. Same entry points, same wire format, same results:
     msm_best(scalars, points, device=None)   adaptive dispatcher
     msm(points, scalars, cfg=None, device=None)
     msm_device(px, py, scalar_limbs, cfg)    the device pipeline on tensors
+    ops.streaming.msm_streamed(...)          the chunked pipeline (n above
+                                             STREAM_THRESHOLD)
+    hybrid.msm_hybrid(...)                   card + native CPU engine split
 
 Inputs are Python lists (int scalars, (x, y) int points with None for
-infinity) or the JAX package's (16, N) uint32 limb arrays: Montgomery-form
-affine points with (0, 0) as infinity, standard-form scalars.
+infinity) or the JAX package's (16, N) limb arrays: Montgomery-form affine
+points with (0, 0) as infinity, standard-form scalars, as uint32 numpy or
+int32 tensors (on the card, they stay there).
 `device` names where the pipeline runs; None means "cuda", and raises as
 "cuda" does when there is no card (the CPU runs only when asked for). On
 CUDA tensors every kernel of the path runs on the card; on CPU tensors
@@ -39,20 +43,20 @@ Affine = Optional[Tuple[int, int]]
 ZERO_FILTER_THRESHOLD = 0.30
 
 # Below this size msm_best runs the native C++ CPU engine instead of the
-# device. The default is inherited from the JAX package for parity and has
-# not been measured on the H100 yet. Override: TPU_MSM_CPU_THRESHOLD, read
-# at import as the JAX package reads it.
-CPU_THRESHOLD = int(os.environ.get("TPU_MSM_CPU_THRESHOLD", 1 << 12))
+# device: the measured crossover on an NVIDIA H100 80GB HBM3 (700.00 W)
+# with the machine's 8 host cores (`benches/dispatch_benchmark.py
+# --crossover`, medians of 10 on bench.py's inputs). The card's route
+# takes 6.7 ms at 2^11 against the engine's 10.7, and 7.0 against 19.9 at
+# 2^12; below 2^11 the scan lanes fall under 1024, the per-window route
+# runs and takes 94-110 ms against 3.8-7.5. Override:
+# TPU_MSM_CPU_THRESHOLD, read at import as the JAX package reads it.
+CPU_THRESHOLD = int(os.environ.get("TPU_MSM_CPU_THRESHOLD", 1 << 11))
 
-
-def _device(device) -> torch.device:
-    """The device the pipeline runs on: None means "cuda". Asking for CUDA
-    without a card raises rather than running on the CPU."""
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device} requested but no CUDA device "
-                           "is available")
-    return device
+# Above this size msm (and so msm_best) runs the chunked pipeline
+# (ops/streaming.py) in chunks of the largest power of two not above it.
+# The default is the JAX package's, kept for parity. Override:
+# TPU_MSM_STREAM_THRESHOLD, read at import as the JAX package reads it.
+STREAM_THRESHOLD = int(os.environ.get("TPU_MSM_STREAM_THRESHOLD", 1 << 22))
 
 
 def msm_device(px: torch.Tensor, py: torch.Tensor, scalar_limbs: torch.Tensor,
@@ -63,16 +67,24 @@ def msm_device(px: torch.Tensor, py: torch.Tensor, scalar_limbs: torch.Tensor,
     return pippenger.msm_projective(AffinePoint(px, py), scalar_limbs, cfg)
 
 
+def _limb_pair(points) -> bool:
+    """Whether `points` is an (x_limbs, y_limbs) pair of limb arrays."""
+    return (isinstance(points, (list, tuple)) and len(points) == 2
+            and hasattr(points[0], "shape"))
+
+
 def msm(points, scalars, cfg: MsmConfig | None = None, device=None) -> Affine:
     """MSM of oracle-style or limb-array inputs -> affine int point.
 
     points: list of (x, y) int tuples (None = infinity) OR an (x_limbs,
     y_limbs) pair of (16, N) Montgomery limb arrays. scalars: list of ints
-    OR a (16, N) standard-form limb array. No streaming route yet: every
-    size runs unstreamed (see pippenger._window_heavy for the memory)."""
-    dev = _device(device)
-    if isinstance(points, (list, tuple)) and len(points) == 2 \
-            and hasattr(points[0], "shape"):
+    OR a (16, N) standard-form limb array. A limb array is uint32 numpy or
+    an int32 tensor (`interop.limb_tensor`); tensors already on `device`
+    stay there, with no host round trip. Above STREAM_THRESHOLD points the
+    chunked pipeline runs (`ops/streaming.msm_streamed`, chunks of the
+    largest power of two not above the threshold), as in the JAX package."""
+    dev = interop.resolve_device(device)
+    if _limb_pair(points):
         px, py = points
     else:
         px, py = interop.affine_points_to_limbs(points)
@@ -83,38 +95,51 @@ def msm(points, scalars, cfg: MsmConfig | None = None, device=None) -> Affine:
     n = px.shape[1]
     if n == 0:
         return None
-    if cfg is None:
-        cfg = select_config(n, dev)
-    res = msm_device(*interop.limbs_to_device(px, py, slimbs, dev), cfg)
+    if n > STREAM_THRESHOLD:
+        from tpu_msm_torch.ops import streaming
+
+        res = streaming.msm_streamed(
+            px, py, slimbs, cfg, chunk_log=STREAM_THRESHOLD.bit_length() - 1,
+            device=dev)
+    else:
+        if cfg is None:
+            cfg = select_config(n, dev)
+        res = msm_device(*interop.limbs_to_device(px, py, slimbs, dev), cfg)
     [pt] = interop.proj_limbs_to_affine_points(
         *(interop.tensor_to_limbs(a) for a in res))
     return pt
 
 
 def _coerce_inputs(scalars, points):
-    """Normalize msm_best inputs to ((16, N) px, py, scalar_limbs) numpy.
+    """Normalize msm_best inputs to (16, N) px, py, scalar_limbs.
 
     Two forms, as `tpu_msm._coerce_inputs`:
       * lists: scalars = ints (reduced mod r here), points = (x, y) tuples
       * arrays: scalars = (16, N) standard-form limbs, already < r; points =
-        a (px, py) pair of (16, N) Montgomery limb arrays."""
+        a (px, py) pair of (16, N) Montgomery limb arrays.
+    Arrays come back as contiguous uint32 numpy; if any of the three is a
+    tensor, all three come back as int32 tensors on that tensor's device
+    (`interop.limb_tensor`)."""
     if hasattr(scalars, "shape") and getattr(scalars, "ndim", 0) == 2:
-        slimbs = np.ascontiguousarray(np.asarray(scalars, dtype=np.uint32))
-        if slimbs.shape[0] != bn254.LIMBS:
-            raise ValueError(f"scalar limb arrays must be ({bn254.LIMBS}, N), "
-                             f"got {slimbs.shape}")
+        slimbs = scalars
     else:
         slimbs = interop.ints_to_limbs([int(s) % bn254.FR for s in scalars])
-    if (isinstance(points, (list, tuple)) and len(points) == 2
-            and hasattr(points[0], "shape")):
-        px = np.ascontiguousarray(np.asarray(points[0], dtype=np.uint32))
-        py = np.ascontiguousarray(np.asarray(points[1], dtype=np.uint32))
-        if px.shape[0] != bn254.LIMBS or px.shape != py.shape:
+    px, py = (points if _limb_pair(points)
+              else interop.affine_points_to_limbs(points))
+    arrays = (px, py, slimbs)
+    tensor = next((a for a in arrays if isinstance(a, torch.Tensor)), None)
+    if tensor is not None:
+        px, py, slimbs = interop.limbs_to_device(*arrays, tensor.device)
+    else:
+        px, py, slimbs = (np.ascontiguousarray(np.asarray(a, dtype=np.uint32))
+                          for a in arrays)
+        if slimbs.ndim != 2 or slimbs.shape[0] != bn254.LIMBS:
+            raise ValueError(f"scalar limb arrays must be ({bn254.LIMBS}, N)"
+                             f", got {slimbs.shape}")
+        if px.ndim != 2 or px.shape[0] != bn254.LIMBS or px.shape != py.shape:
             raise ValueError(f"point limb arrays must be ({bn254.LIMBS}, N) "
                              f"pairs, got {px.shape} / {py.shape}")
-    else:
-        px, py = interop.affine_points_to_limbs(points)
-    if slimbs.shape[1] != px.shape[1]:
+    if slimbs.shape[1] != px.shape[1] or px.shape != py.shape:
         raise ValueError("scalars and points must have equal length")
     return px, py, slimbs
 
@@ -124,23 +149,25 @@ def msm_best(scalars, points, device=None) -> Affine:
 
     Drops zero scalars when at least ZERO_FILTER_THRESHOLD of them are zero,
     then runs the native C++ engine below CPU_THRESHOLD points and the
-    device pipeline (`msm`) from there up."""
-    dev = _device(device)
+    device pipeline (`msm`, streamed above STREAM_THRESHOLD) from there up.
+    Limb tensors on the card stay there (the zero scan and filter run where
+    they lie); only the native engine's inputs come to the host."""
+    dev = interop.resolve_device(device)
     px, py, slimbs = _coerce_inputs(scalars, points)
     n = slimbs.shape[1]
     if n == 0:
         return None
-    nonzero = (slimbs != 0).any(axis=0)
-    num_zeros = n - int(np.count_nonzero(nonzero))
+    nonzero = (slimbs != 0).any(0)
+    num_zeros = n - int(nonzero.sum())
     if num_zeros == n:
         return None
     if num_zeros >= ZERO_FILTER_THRESHOLD * n:
-        px = np.ascontiguousarray(px[:, nonzero])
-        py = np.ascontiguousarray(py[:, nonzero])
-        slimbs = np.ascontiguousarray(slimbs[:, nonzero])
+        px, py, slimbs = (a[:, nonzero] for a in (px, py, slimbs))
     if slimbs.shape[1] < CPU_THRESHOLD:
         from tpu_msm_torch.bindings import native
 
         if native.available():
-            return native.msm(px, py, slimbs)
+            return native.msm(*(interop.tensor_to_limbs(a)
+                                if isinstance(a, torch.Tensor) else a
+                                for a in (px, py, slimbs)))
     return msm((px, py), slimbs, device=dev)

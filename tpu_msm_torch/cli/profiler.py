@@ -8,6 +8,8 @@ Usage (positionals as the reference's
     python -m tpu_msm_torch.cli.profiler 20 5 gpu 10
     python -m tpu_msm_torch.cli.profiler 20 1 check 1
     python -m tpu_msm_torch.cli.profiler 16 2 best 2 4   # concurrency stress
+    python -m tpu_msm_torch.cli.profiler 22 1 stream 1
+    python -m tpu_msm_torch.cli.profiler 20 1 hybrid 1
     python -m tpu_msm_torch.cli.profiler --check-kernels
 
 Run modes:
@@ -17,20 +19,27 @@ Run modes:
     best   the adaptive dispatcher msm_best (the reference's "best_gpu")
     cpu    the native C++ engine
     check  gpu and cpu on every instance; exit 1 unless they agree
+    stream the chunked pipeline (`ops.streaming.msm_streamed`, chunks of
+           2^20, each with the instance size's configuration, as in the
+           JAX package) on inputs placed on the card once
+    hybrid the card + native CPU split (`hybrid.msm_hybrid`, the
+           reference's "gpu_cpu"), on host inputs
+    stream and hybrid hold their warm-up result on the first instance
+    against the native engine (outside the timing); exit 1 unless they agree
 
-The JAX package's `sharded`, `stream` and `hybrid` modes wait for the
-modules they drive (ROADMAP). `parallel_runs > 1` (gpu | best | cpu) splits
-each instance into that many chunks, runs each on its own thread after a
-random 0-50 ms delay, and requires the EC sum of the chunk results to equal
-the single-threaded result.
+The JAX package's `sharded` mode waits for the module it drives (ROADMAP).
+`parallel_runs > 1` (gpu | best | cpu) splits each instance into that many
+chunks, runs each on its own thread after a random 0-50 ms delay, and
+requires the EC sum of the chunk results to equal the single-threaded
+result.
 
 `--check-kernels` holds every CUDA kernel of the port against its plain
 PyTorch version bit for bit, and against the curve-level ops by projective
 equality, on the card at 1024 lanes with edge lanes (equal points,
 inverses, infinities), and logs one `kernel <name> OK|MISMATCH` line each.
 
-The gpu, best and check modes and `--check-kernels` need a CUDA device and
-raise without one: they never run on the CPU instead. Inputs come from
+The gpu, best, check, stream and hybrid modes and `--check-kernels` need a
+CUDA device and raise without one: they never run on the CPU instead. Inputs come from
 `tpu_msm_torch.utils.preprocess` (cached under TPU_MSM_CACHE_DIR, same
 files as the JAX package's). Timings are logged; -v adds per-run lines.
 """
@@ -50,7 +59,9 @@ import torch
 
 log = logging.getLogger("tpu_msm_torch.profiler")
 
-MODES = ("gpu", "best", "cpu", "check")
+MODES = ("gpu", "best", "cpu", "check", "stream", "hybrid")
+# The chunk of the stream mode, as in the JAX package's `_run_stream`.
+STREAM_CHUNK_LOG = 20
 
 
 def _card() -> torch.device:
@@ -105,6 +116,26 @@ def run_best(inst, device):
 
     return tpu_msm_torch.msm_best(inst.scalars, (inst.px, inst.py),
                                   device=device)
+
+
+def run_stream(inst, cfg, device, chunk_log: int = STREAM_CHUNK_LOG):
+    """msm_streamed on `inst` (numpy arrays, or tensors already on
+    `device`) in chunks of 2^chunk_log, every chunk with `cfg`; returns the
+    (16, 1) projective result after the device has finished."""
+    from tpu_msm_torch.ops import streaming
+
+    res = streaming.msm_streamed(inst.px, inst.py, inst.scalars, cfg,
+                                 chunk_log=chunk_log, device=device)
+    _sync(device)
+    return res
+
+
+def run_hybrid(inst, cfg, device):
+    """msm_hybrid on `inst` (numpy arrays) at the ladder's share, the device
+    part with `cfg`; returns the affine result."""
+    from tpu_msm_torch.hybrid import msm_hybrid
+
+    return msm_hybrid(inst.px, inst.py, inst.scalars, cfg, device=device)
 
 
 def run_check(inst, cfg, device, dev_inst=None):
@@ -369,10 +400,10 @@ def main(argv=None):
              args.num_instances, args.log_instance_size)
     instances = preprocess.get_or_create_msm_instances(
         args.log_instance_size, args.num_instances)
-    # gpu and check place the arrays on the card once, before timing, so
-    # that the runs time the card and not the host-to-device copy.
+    # gpu, check and stream place the arrays on the card once, before
+    # timing, so that the runs time the card and not the host-to-device copy.
     on_card = ([_on_device(i, device) for i in instances]
-               if mode in ("gpu", "check") else instances)
+               if mode in ("gpu", "check", "stream") else instances)
 
     expected = None
     if args.parallel_runs > 1:
@@ -384,6 +415,15 @@ def main(argv=None):
         run_gpu(on_card[0], cfg, device)  # warm-up, excluded from timing
     elif mode == "best":
         run_best(instances[0], device)
+    elif mode in ("stream", "hybrid"):
+        # The warm-up result against the native engine, outside the timing.
+        got = (_affine(run_stream(on_card[0], cfg, device))
+               if mode == "stream" else run_hybrid(instances[0], cfg, device))
+        want = run_cpu(instances[0])
+        if got != want:
+            log.error("MISMATCH at instance 0: %s=%s cpu=%s", mode, got, want)
+            return 1
+        log.info("instance 0: %s == cpu", mode)
 
     total = 0.0
     runs = 0
@@ -402,6 +442,10 @@ def main(argv=None):
                 run_best(inst, device)
             elif mode == "cpu":
                 run_cpu(inst)
+            elif mode == "stream":
+                run_stream(on_card[i], cfg, device)
+            elif mode == "hybrid":
+                run_hybrid(inst, cfg, device)
             else:
                 got, want = run_check(inst, cfg, device, on_card[i])
                 if got != want:

@@ -42,7 +42,8 @@ as in the JAX package.
 
 Dropped from the JAX fused route: the `_FUSED_MAX_LANES // w` fanout clamp
 and the query padding to 4096. They change only the association of EC
-adds, so window sums stay projectively equal. Not ported yet: streaming.
+adds, so window sums stay projectively equal. Above STREAM_THRESHOLD
+`msm` runs this pipeline a chunk at a time (`ops/streaming.py`).
 """
 
 from __future__ import annotations
@@ -179,10 +180,16 @@ def window_group_size(w: int, n_pad: int, device) -> int:
     CPU_GROUP_BUDGET on the CPU. At 2^20 points on the H100 that is all 16
     windows of c = 16 in one group (about 4.5 GB of transients, one scan
     launch of 1024 blocks); at 2^24 two windows a group."""
+    return max(1, min(w, group_budget(device)
+                      // (n_pad * GROUP_BYTES_PER_POINT)))
+
+
+def group_budget(device) -> int:
+    """The bytes a window group's transients may take on `device`: 1/8 of
+    the card's `total_memory`, or CPU_GROUP_BUDGET on the CPU."""
     device = torch.device(device)
-    budget = (torch.cuda.get_device_properties(device).total_memory // 8
-              if device.type == "cuda" else CPU_GROUP_BUDGET)
-    return max(1, min(w, budget // (n_pad * GROUP_BYTES_PER_POINT)))
+    return (torch.cuda.get_device_properties(device).total_memory // 8
+            if device.type == "cuda" else CPU_GROUP_BUDGET)
 
 
 def _segment_starts(digits, m: int, cfg: MsmConfig):
@@ -227,7 +234,7 @@ def _window_heavy(digits, negm, ppx, ppy, n: int, cfg: MsmConfig):
     the sorted digits and payload, the sort's int64 permutation and the
     48-row scan output, which `window_group_size` keeps within 1/8 of the
     card's memory (about 4.5 GB for 16 windows at 2^20; at 2^24 a group of
-    two windows holds about 9 GB). So the port runs every size unstreamed."""
+    two windows holds about 9 GB)."""
     m = cfg.buckets_per_window()
     g = digits.shape[0]
     lanes = cfg.scan_lanes
