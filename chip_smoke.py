@@ -50,7 +50,19 @@ which holds its result against the native engine.
 
 Phase 2 holds the histogram in each of its regimes (ops/hist.py, `plan`)
 against its plain version and times the two regimes for the tuned row's
-65,536 bins (split bins, 16-bit counters) in turns. Phase 4 also times
+65,536 bins (split bins, 16-bit counters) in turns; it holds both kernels
+of padd, fold_add and pmadd (one thread or eight lanes an element) and
+times them in turns where the rule between them (cuda_curve.kernel_path)
+is placed, pmadd at 8, 64, 4096, 8192, 16384, 65,536 and 2^20 elements
+(8 and 64: the scan lanes of the golden vectors' configurations, the
+widths the group kernel runs at in phase 13, where each pmadd launch is
+also held against the plain version on its own inputs). Phase 4
+asserts the per-window route's pmadd launches, one a scan step, each on
+the kernel the rule gives its width. Phase 7 holds montmul_chain at every
+ilp 1-8 with accumulators >= P, 0, P - 1 and 2^256 - 1, and settles the
+bound model: at ilp 4 and 8, on 65,536 lanes, the rate against one
+product's SASS by kind says whether a wide IMAD takes one issue slot of
+the multiply pipe or two (`phase_bound_model`). Phase 4 also times
 the fused route at the per-window path's 16384 lanes, which the route rule
 does not take there. Phase 6, last so that no timing runs after the
 profiler, profiles `msm_device` at 2^20 with the tuned row and on each
@@ -62,7 +74,8 @@ run's inputs) and, for the histogram, `torch.bincount`'s and
 `torch.searchsorted`'s times. The serial tail (window_tail, horner) is
 bound by latency instead: its serial adds x 2 dependent products x the
 least time one product can take, the card's pipe floor (the product's
-multiply instructions in the built SASS at 2 clocks each); beside it the
+multiply-pipe issue slots in the built SASS, two for a wide IMAD, at 2
+clocks each); beside it the
 same chain at the latency of one product of the port's own field core (the
 montmul_chain kernel on one lane), and the chain of width-16 and
 width-1 `padd` launches it replaced, timed in the same run.
@@ -266,6 +279,14 @@ def tile(t, width):
     return t.repeat(1, -(-width // t.shape[1]))[:, :width].contiguous()
 
 
+def edge_cols(width):
+    """`width` (>= 8) column indices of an edge_affine pair that hold every
+    edge in the first eight: an infinity on each side (0, 7), a doubling
+    (64, 66), a cancelling pair (128, 130), two ordinary adds (1, 2); then
+    ordinary lanes from 192 on, with infinities every 29."""
+    return [0, 7, 64, 66, 128, 130, 1, 2] + list(range(192, 184 + width))
+
+
 def checker(entries, phase):
     """check(name, shape, got, want): kernel output against its plain
     version, bit for bit; records the shape in entries[name]."""
@@ -288,9 +309,9 @@ def checker(entries, phase):
 
 
 # The card's peaks for a kernel's bound: the H100 SXM's HBM3 rate of
-# 3.35 TB/s, and utils/profiling.py's model of the
-# 32-bit integer multiply rate (64 a clock per SM) at this card's SM count
-# and maximum SM clock.
+# 3.35 TB/s, and utils/profiling.py's model of the integer multiply pipe
+# (64 lanes' issue slots a clock per SM, two slots for a wide IMAD) at this
+# card's SM count and maximum SM clock.
 HBM_BYTES_PER_S = 3.35e12
 
 
@@ -304,8 +325,8 @@ def int_ops_per_s():
 
 def ec_work(mont_muls, elems, rows):
     """The work of an EC kernel: `mont_muls` Montgomery products of 264
-    32-bit multiplies each (utils/profiling.py), and `elems` elements of
-    `rows` 4-byte rows, inputs and outputs together."""
+    multiply-pipe issue slots each (utils/profiling.py), and `elems`
+    elements of `rows` 4-byte rows, inputs and outputs together."""
     from tpu_msm_torch.utils import profiling
 
     return {"ops": mont_muls * profiling.CIOS_MULS_PER_MONT_MUL,
@@ -364,6 +385,7 @@ def timer(phase):
 # they stand in the kernels' JSON line.
 PADD = {"thread": "padd", "group": "padd_group"}
 FOLD = {"thread": "fold_add", "group": "fold_add_group"}
+PMADD = {"thread": "pmadd", "group": "pmadd_group"}
 
 
 def time_paths(phase, name, shape, run, plain_ms, work, rule,
@@ -395,6 +417,7 @@ def time_paths(phase, name, shape, run, plain_ms, work, rule,
 
 KERNEL_FUNCTIONS = ("scan_madd_rows_kernel", "scan_madd_kernel",
                     "jac_madd_kernel", "jac_add_kernel", "pmadd_kernel",
+                    "pmadd_group_kernel",
                     "padd_group_kernel", "padd_kernel", "window_tail_kernel",
                     "horner_kernel", "fold_add_group_kernel",
                     "fold_add_kernel", "digit_hist_kernel",
@@ -748,20 +771,20 @@ def product_latency_ms(dev):
 
 def product_pipe_floor_ms():
     """A floor on one product's latency that the card sets, whatever the
-    carry chains cost: the multiply instructions of one product in the
-    built montmul_chain kernel's SASS (IMAD, IMAD.WIDE*, IMAD.HI*, IMUL*;
-    not the carry adds and moves that also run as IMAD.X and IMAD.MOV),
-    each a warp instruction that holds one scheduler's multiply pipe
-    32 / (IMAD_PER_CLOCK_PER_SM / 4) = 2 clocks, at the SM clock's
-    maximum. Returns (ms, instructions)."""
+    carry chains cost: the multiply pipe's issue slots of one product in
+    the built montmul_chain kernel's SASS (montmul_benchmark.sass_counts:
+    profiling.WIDE_IMAD_SLOTS for each wide or hi IMAD, one for each narrow
+    one; not the carry adds and moves that run as IMAD.X and IMAD.MOV),
+    each slot holding one scheduler's pipe 32 / (IMAD_PER_CLOCK_PER_SM / 4)
+    = 2 clocks for a warp, at the SM clock's maximum. Returns (ms, slots)."""
     from tpu_msm_torch.benches import montmul_benchmark as mb
     from tpu_msm_torch.utils import profiling
 
-    muls = sum(k for op, k in mb.sass_counts()["per_product"].items()
-               if op == "IMAD" or op.startswith(("IMAD.WIDE", "IMAD.HI",
-                                                 "IMUL")))
-    clocks = muls * 32 / (profiling.IMAD_PER_CLOCK_PER_SM / 4)
-    return clocks / profiling.sm_clock_hz() * 1e3, muls
+    kinds = mb.sass_counts()["per_product_kinds"]
+    slots = (profiling.WIDE_IMAD_SLOTS * (kinds["wide"] + kinds["hi"])
+             + kinds["narrow"])
+    clocks = slots * 32 / (profiling.IMAD_PER_CLOCK_PER_SM / 4)
+    return clocks / profiling.sm_clock_hz() * 1e3, slots
 
 
 def phase_tail(dev, entries, sh, big):
@@ -802,7 +825,7 @@ def phase_tail(dev, entries, sh, big):
     log(2, f"one Montgomery product's latency with the port's field core "
         f"(montmul_chain, one lane, chain 64, steps 8): {lat * 1e3:.4f} us; "
         f"the card's pipe floor for it "
-        f"({muls} multiply instructions at 2 clocks): "
+        f"({muls} multiply-pipe slots at 2 clocks): "
         f"{floor * 1e3:.4f} us; serial adds: window_tail {tail_adds}, "
         f"horner {horner_adds}")
     old_tail = lambda: cc.window_tail_by_adds(  # noqa: E731
@@ -872,7 +895,7 @@ def bench_inputs(n):
 def counters():
     """({kernel name: (wrapper, counter attribute)}, [plain versions]) of
     every kernel. padd.launches counts both padd kernels, padd_group_kernel's
-    own are padd.group_launches; fold_add's likewise."""
+    own are padd.group_launches; fold_add's and pmadd's likewise."""
     from tpu_msm_torch.ops import cuda_curve as cc
     from tpu_msm_torch.ops import hist
 
@@ -885,6 +908,7 @@ def counters():
         ("montmul_chain", cc.montmul_chain))}
     kernels["padd_group"] = (cc.padd, "group_launches")
     kernels["fold_add_group"] = (cc.fold_add, "group_launches")
+    kernels["pmadd_group"] = (cc.pmadd, "group_launches")
     plains = [cc.scan_madd_plain, cc.padd_plain, cc.window_tail_plain,
               cc.horner_plain, cc.fold_add_plain, hist.digit_hist_plain,
               cc.pmadd_plain, cc.jac_madd_plain, cc.jac_add_plain,
@@ -904,7 +928,8 @@ MAIN_KERNELS = ("scan_madd", "padd", "fold_add", "digit_hist", "window_tail",
                 "horner")
 # Kernels whose wrapper counts a second kernel's launches too: its own are
 # the wrapper's count less the second's.
-SHARED_COUNTS = {"padd": "padd_group", "fold_add": "fold_add_group"}
+SHARED_COUNTS = {"padd": "padd_group", "fold_add": "fold_add_group",
+                 "pmadd": "pmadd_group"}
 
 
 def read_counts(phase, path_kernels):
@@ -1024,8 +1049,19 @@ def phase_new_kernels(dev):
         return [t[:, :width].contiguous() for t in ts]
 
     # ---- edge lanes: infinities, P + P, P + (-P) ----
-    check("pmadd", [16, 8192], cc.pmadd(*pa, *b_aff),
-          cc.pmadd_plain(*pa, *b_aff))
+    # Both pmadd kernels, at 8192 and at a ragged 8191, and at the golden
+    # configurations' scan lanes, 8 and 64, on the edge columns.
+    for width in (8192, 8191):
+        ops = (*cut(pa, width), *cut(b_aff, width))
+        want = cc.pmadd_plain(*ops)
+        for path, name in PMADD.items():
+            check(name, [16, width], cc.pmadd(*ops, path=path), want)
+    for width in GOLDEN_LANES:
+        cols = torch.tensor(edge_cols(width), device=dev)
+        ops = [t.index_select(1, cols).contiguous() for t in (*pa, *b_aff)]
+        want = cc.pmadd_plain(*ops)
+        for path, name in PMADD.items():
+            check(name, [16, width], cc.pmadd(*ops, path=path), want)
     for width in (1024, 8192):
         ops = (*cut(ja, width), *cut(b_aff, width))
         check("jac_madd", [16, width], cc.jac_madd(*ops),
@@ -1044,15 +1080,43 @@ def phase_new_kernels(dev):
           cc.scan_madd_rows_plain(gx, gy))
 
     # ---- the paths' shapes, checked, then kernel and plain timed ----
-    # pmadd at 16384 lanes: one per-window scan step at 2^20, timed per
-    # call over 20 back-to-back calls, as the scan makes them.
-    ops = [tile(t[:, 1:], 16384) for t in (*pa, *b_aff)]
-    check("pmadd", [16, 16384], cc.pmadd(*ops), cc.pmadd_plain(*ops))
-    entries["pmadd"].update(timed("pmadd", [16, 16384],
-                                  lambda: cc.pmadd(*ops),
-                                  lambda: cc.pmadd_plain(*ops),
-                                  ec_work(11 * finite(*ops[3:]), 16384,
-                                          80 + 48), inner=20))
+    # pmadd: both kernels at the golden configurations' 8 and 64 scan
+    # lanes, at the per-window route's 16384 lanes (one scan step at 2^20)
+    # and, to place their crossover (cuda_curve.GROUP_BELOW_PER_SM), at
+    # 4096, 8192, 65,536 and 2^20 elements. At 8 and 16384 also a call over
+    # 20 back-to-back calls with the host's launch, as the route makes
+    # them; the plain version is timed at each width up to 16384.
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    recs = {}
+    for width in (*GOLDEN_LANES, 4096, 8192, 16384, 65536, 1 << 20):
+        ops = [tile(t[:, 1:], width) for t in (*pa, *b_aff)]
+        want = cc.pmadd_plain(*ops)
+        for path, name in PMADD.items():
+            check(name, [16, width], cc.pmadd(*ops, path=path), want)
+        del want
+        if width <= 16384:
+            plain_ms = cuda_ms(lambda: cc.pmadd_plain(*ops), inner=20)
+        by_path = time_paths(
+            2, "pmadd", [16, width], lambda path: cc.pmadd(*ops, path=path),
+            plain_ms, ec_work(11 * finite(*ops[3:]), width, 80 + 48),
+            cc.kernel_path(width, sms),
+            plain_shape=[16, 16384] if width > 16384 else None)
+        if width in (GOLDEN_LANES[0], 16384):
+            for path in PMADD:
+                by_path[path]["call_ms"] = cuda_ms(
+                    lambda: cc.pmadd(*ops, path=path), inner=20)
+            log(2, f"pmadd [16, {width}] a call with the host's launch: "
+                f"thread {by_path['thread']['call_ms']:.4f} ms, group "
+                f"{by_path['group']['call_ms']:.4f} ms")
+        recs[width] = by_path
+        del ops
+    # Each kernel's entry leads with a width its path launches it at: the
+    # thread kernel the per-window route's 16384, the group kernel the
+    # golden configurations' 8.
+    for (path, name), first in zip(PMADD.items(), (16384, GOLDEN_LANES[0])):
+        entries[name].update(recs[first][path], other_shapes=[
+            by_path[path] for width, by_path in recs.items()
+            if width != first])
     # jac_madd and jac_add at 2^20 elements. Both adders compute every
     # lane (11 and 16 products), and the doubling (7 more) where P == Q.
     big = 1 << 20
@@ -1149,9 +1213,13 @@ def phase_window_kernels(dev, entries):
 def phase_window(dev, inputs, expected, fused_ms):
     """tpu_msm_torch.msm through the per-window path at 2^20 (16384 scan
     lanes, c = 16 signed, fanout 2048), with each segment-start option,
-    against the native engine; its counters; its msm_device time beside
-    the fused path's. Returns the launches."""
+    against the native engine; its counters, pmadd's launches (one a scan
+    step) on the kernel the rule gives the route's width; its msm_device
+    time beside the fused path's. Returns the launches."""
+    import torch
+
     import tpu_msm_torch
+    from tpu_msm_torch.ops import cuda_curve as cc
     from tpu_msm_torch.utils import interop
     from tpu_msm_torch.utils.config import MsmConfig
 
@@ -1168,11 +1236,27 @@ def phase_window(dev, inputs, expected, fused_ms):
                                  f": {got} != native {expected[20]}")
         log(4, f"per-window msm n=2^20 segment_starts={cfg.segment_starts} "
             f"== native engine (affine, exact), {dt:.4f} s")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    lanes = cfgs[0].scan_lanes
+    pmadd_path = cc.kernel_path(lanes, sms)
     launches = read_counts(4, ("pmadd", "padd", "padd_group", "fold_add",
                                "fold_add_group", "digit_hist", "window_tail",
-                               "horner"))
+                               "horner")
+                           + (("pmadd_group",) if pmadd_path == "group"
+                              else ()))
     if launches["scan_madd"]:
         raise AssertionError("the per-window path ran the fused scan")
+    # One pmadd launch a scan step: W windows x ceil(n / lanes) steps a call,
+    # each on the kernel kernel_path gives the route's width.
+    steps = sum(c.num_windows() * -(-(1 << 20) // lanes) for c in cfgs)
+    want = {"pmadd": steps,
+            "pmadd_group": steps if pmadd_path == "group" else 0}
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"per-window pmadd launches {launches}, "
+                             f"expected {want}")
+    log(4, f"per-window pmadd launches {launches['pmadd']} "
+        f"({launches['pmadd_group']} pmadd_group_kernel): the rule takes "
+        f"{pmadd_path} at {lanes} lanes on {sms} SMs")
 
     dpx, dpy, dsl = interop.limbs_to_device(px, py, sl, dev)
     pw_ms = cuda_ms(lambda: tpu_msm_torch.msm_device(dpx, dpy, dsl, cfgs[0]))
@@ -1293,27 +1377,90 @@ MONTMUL_LANES = 65536
 
 def phase_montmul(dev, entries):
     """montmul_chain against its plain version (bit-identical) at 65,536
-    lanes with ilp 1 and 2 at a cut of the chain (chain 8, steps 2), with
-    starting accumulators >= P on 4096 lanes; then both timed at the
-    microbench's shape (chain 64, steps 8, ilp 1)."""
+    lanes with ilp 1-8 at a cut of the chain (chain 8, steps 2), with
+    starting accumulators >= P, 0, P - 1 and 2^256 - 1 on 1024 lanes each
+    (a = x on the rest); then timed at the microbench's shape (chain 64,
+    steps 8) at ilp 1 beside its plain version, and at ilp 4 and 8."""
+    import torch
+
     from tpu_msm_torch.benches import montmul_benchmark as mb
+    from tpu_msm_torch.models import bn254
     from tpu_msm_torch.ops import cuda_curve as cc
+    from tpu_msm_torch.utils import interop
 
     check = checker(entries, 7)
     x = mb.inputs(MONTMUL_LANES, dev)
     a = x.clone()
-    a[15, :4096] = 0xFFFF  # >= P, as the XOR fold can make them
-    for ilp in (1, 2):
-        for label, start in (("a = x", x), ("a >= P", a)):
-            check("montmul_chain", [16, MONTMUL_LANES, "chain 8", "steps 2",
-                                    f"ilp {ilp}", label],
-                  cc.montmul_chain(start, x, 8, 2, ilp),
-                  cc.montmul_chain_plain(start, x, 8, 2, ilp))
+    a[15, :1024] = 0xFFFF  # >= P, as the XOR fold can make them
+    for k, v in enumerate((0, bn254.P - 1, bn254.R - 1), start=1):
+        a[:, 1024 * k:1024 * (k + 1)] = torch.from_numpy(
+            interop.ints_to_limbs([v]).view(np.int32)).to(dev)
+    label = "a >= P, 0, P - 1, 2^256 - 1, = x"
+    for ilp in range(1, cc.MONTMUL_MAX_ILP + 1):
+        check("montmul_chain", [16, MONTMUL_LANES, "chain 8", "steps 2",
+                                f"ilp {ilp}", label],
+              cc.montmul_chain(a, x, 8, 2, ilp),
+              cc.montmul_chain_plain(a, x, 8, 2, ilp))
     entries["montmul_chain"].update(timer(7)(
         "montmul_chain", [16, MONTMUL_LANES, "chain 64", "steps 8", "ilp 1"],
         lambda: cc.montmul_chain(x, x, 64, 8, 1),
         lambda: cc.montmul_chain_plain(x, x, 64, 8, 1),
         ec_work(MONTMUL_LANES * 64 * 8, MONTMUL_LANES, 48)))
+    others = []
+    for ilp in (4, 8):
+        shape = [16, MONTMUL_LANES, "chain 64", "steps 8", f"ilp {ilp}"]
+        ms = graph_ms(lambda: cc.montmul_chain(x, x, 64, 8, ilp))
+        rec = {"shape": str(shape), "ms": ms, **bound(ec_work(
+            MONTMUL_LANES * 64 * 8 * ilp, MONTMUL_LANES, 48))}
+        log(7, f"time montmul_chain {shape}: kernel {ms:.4f} ms on the "
+            f"device; bound {rec['bound_ms']:.4f} ms by {rec['bound_by']}")
+        others.append(rec)
+    entries["montmul_chain"]["other_shapes"] = others
+    lat = product_latency_ms(dev)
+    floor, muls = product_pipe_floor_ms()
+    log(7, f"one Montgomery product's latency (montmul_chain, one lane, "
+        f"chain 64, steps 8): {lat * 1e3:.4f} us; the pipe floor for its "
+        f"{muls} multiply-pipe slots: {floor * 1e3:.4f} us")
+
+
+def phase_bound_model(dev):
+    """The question behind every "operations" bound: does a wide IMAD take
+    one issue slot of the multiply pipe or two? montmul_chain on 65,536
+    lanes at ilp 4 and 8 (throughput, not latency, binds there), each
+    launched back to back for about a second with the SM clock sampled by
+    nvidia-smi while they run; the rate against one product's SASS
+    (montmul_benchmark.sass_counts, by kind) gives the multiply pipe's
+    warp instructions an SM clock under each slot count
+    (montmul_benchmark.pipe_rates)."""
+    import torch
+
+    from tpu_msm_torch.benches import montmul_benchmark as mb
+    from tpu_msm_torch.ops import cuda_curve as cc
+    from tpu_msm_torch.utils import profiling
+
+    sass = mb.sass_counts()
+    log(7, "sass one product: kinds " + json.dumps(sass["per_product_kinds"])
+        + "; IMAD family " + json.dumps(sass["per_product"]) + "; all "
+        + json.dumps(sass["per_product_all"]))
+    x = mb.inputs(MONTMUL_LANES, dev)
+    sms = profiling.sm_count(dev)
+    for ilp in (4, 8):
+        fn = lambda: cc.montmul_chain(x, x, 64, 8, ilp)  # noqa: E731
+        reps = max(1, math.ceil(1000.0 / _events_ms(fn, 1)))
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        clock = float(profiling._smi("clocks.sm")) * 1e6  # while they run
+        end.synchronize()
+        ms = start.elapsed_time(end) / reps
+        rate = MONTMUL_LANES * 64 * 8 * ilp / (ms * 1e-3)
+        out = {"ilp": ilp, "ms": ms, "mont_mul_per_s": rate,
+               "sm_clock_hz_max": profiling.sm_clock_hz(),
+               **mb.pipe_rates(rate, sass, sms, clock)}
+        log(7, "bound model (at the SM clock under load) " + json.dumps(out))
 
 
 def phase_roofline(dev):
@@ -1461,19 +1608,20 @@ STREAM_LOG = 24
 
 
 class RouteSpy:
-    """While active, wraps the kernel wrappers the fused route calls
-    (pippenger's imports of cuda_curve's scan_madd, padd, fold_add,
+    """While active, wraps the kernel wrappers the routes call
+    (pippenger's imports of cuda_curve's scan_madd, padd, pmadd, fold_add,
     window_tail and horner; hist.digit_hist, which the segment starts call)
     and records, for each kernel and input shape, the launches its calls
-    made and a copy of the first call's inputs. padd and fold_add are
-    recorded under the kernel their rule took (padd or padd_group, ...).
+    made and a copy of the first call's inputs. padd, pmadd and fold_add
+    are recorded under the kernel their rule took (padd or padd_group, ...).
     The wrappers count their launches as before."""
 
     def __init__(self):
         from tpu_msm_torch.ops import hist, pippenger
 
         self.targets = [(pippenger, name) for name in (
-            "scan_madd", "padd", "fold_add", "window_tail", "horner")]
+            "scan_madd", "padd", "pmadd", "fold_add", "window_tail",
+            "horner")]
         self.targets.append((hist, "digit_hist"))
         self.calls = {}  # (kernel, shape) -> {"launches": k, "args": ...}
 
@@ -1536,7 +1684,7 @@ def check_route(phase, entries, calls):
         args = rec["args"]
         base = kernel.removesuffix("_group")
         path = ({"path": "group" if kernel.endswith("_group") else "thread"}
-                if base in ("padd", "fold_add") else {})
+                if base in ("padd", "pmadd", "fold_add") else {})
         label = f"{shape}, {rec['launches']} launches"
         if base == "scan_madd":
             head = [a[:, :, :8].contiguous() for a in args]
@@ -1696,12 +1844,20 @@ GOLDEN_JAX_DEFAULTS = dict(reduce_fanout=4096, signed_digits=False,
 GOLDEN_CONFIGS = {"random_n64_c16": dict(window_bits=16, scan_lanes=8),
                   "random_n1024": dict(window_bits=8, scan_lanes=64,
                                        signed_digits=True)}
+GOLDEN_DEFAULT = dict(window_bits=8, scan_lanes=8)
+# The scan lanes of those configurations: the per-window route's pmadd
+# widths in phase 13, where the rule takes the group kernel.
+GOLDEN_LANES = tuple(sorted({kw["scan_lanes"] for kw in (
+    GOLDEN_DEFAULT, *GOLDEN_CONFIGS.values())}))
 
 
-def phase_golden(dev):
+def phase_golden(dev, entries):
     """Every MSM case of tests/vectors/bn254_golden.json (a second,
     independent implementation's) through msm on the card, with the JAX
-    package's golden-vector test's configuration, equal to its result."""
+    package's golden-vector test's configuration, equal to its result;
+    every kernel the cases launch held against its plain version at each
+    shape it launches it at (RouteSpy, check_route), each pmadd shape one
+    that phase 2 timed. Returns the launches."""
     from tpu_msm_torch import msm
     from tpu_msm_torch.utils.config import MsmConfig
 
@@ -1709,20 +1865,40 @@ def phase_golden(dev):
         / "bn254_golden.json"
     golden = json.loads(path.read_text())
     reset_counts()
-    for case in golden["msm_cases"]:
-        kw = dict(GOLDEN_JAX_DEFAULTS, **GOLDEN_CONFIGS.get(
-            case["name"], dict(window_bits=8, scan_lanes=8)))
-        cfg = MsmConfig(**kw)
-        scalars = [int(s, 16) for s in case["scalars"]]
-        points = [None if p is None else (int(p[0], 16), int(p[1], 16))
-                  for p in case["points"]]
-        want = (None if case["result"] is None else
-                tuple(int(v, 16) for v in case["result"]))
-        expected_is(msm(points, scalars, cfg, device=dev), want,
-                    f"golden {case['name']}")
-        log(13, f"golden {case['name']} (n = {len(scalars)}, {kw}) == the "
-            f"fixture's result")
-    read_counts(13, ("pmadd", "padd", "window_tail", "horner"))
+    with RouteSpy() as spy:
+        for case in golden["msm_cases"]:
+            kw = dict(GOLDEN_JAX_DEFAULTS, **GOLDEN_CONFIGS.get(
+                case["name"], GOLDEN_DEFAULT))
+            cfg = MsmConfig(**kw)
+            scalars = [int(s, 16) for s in case["scalars"]]
+            points = [None if p is None else (int(p[0], 16), int(p[1], 16))
+                      for p in case["points"]]
+            want = (None if case["result"] is None else
+                    tuple(int(v, 16) for v in case["result"]))
+            expected_is(msm(points, scalars, cfg, device=dev), want,
+                        f"golden {case['name']}")
+            log(13, f"golden {case['name']} (n = {len(scalars)}, {kw}) == "
+                f"the fixture's result")
+    launches = read_counts(13, ("pmadd", "pmadd_group", "padd", "window_tail",
+                                "horner"))
+    shapes = check_route(13, entries, spy.calls)
+    del spy
+    timed = {rec["shape"] for name in PMADD.values()
+             for rec in (entries[name], *entries[name]["other_shapes"])}
+    for kernel in PMADD.values():
+        own = launches[kernel] - launches.get(SHARED_COUNTS.get(kernel), 0)
+        recs = shapes.get(kernel, [])
+        if sum(r["launches"] for r in recs) != own:
+            raise AssertionError(f"{kernel}: {recs} recorded by shape, {own} "
+                                 f"launches counted")
+        if any(r["shape"] not in timed for r in recs):
+            raise AssertionError(f"{kernel}: golden shapes {recs}, phase 2 "
+                                 f"timed {sorted(timed)}")
+        entries[kernel]["golden_shapes"] = recs
+    log(13, f"every kernel of the golden cases == its plain version at each "
+        f"shape it launched it at: "
+        f"{json.dumps({k: [[r['shape'], r['launches']] for r in v] for k, v in shapes.items()})}")
+    return launches
 
 
 def phase_tensors(dev, inputs, expected):
@@ -1764,6 +1940,7 @@ SOURCES = {
     "digit_hist": ("tpu_msm_torch/csrc/hist.cu",
                    "tpu_msm/ops/hist.py:171, tpu_msm/ops/hist.py:107", "main"),
     "pmadd": (EC, f"{PC}:988", "per_window"),
+    "pmadd_group": (EC, f"{PC}:988", "golden"),
     "jac_madd": (EC, f"{PC}:367", "cli"),
     "jac_add": (EC, f"{PC}:385", "cli"),
     "scan_madd_rows": (EC, f"{PC}:565", "cli"),
@@ -1773,6 +1950,8 @@ SOURCES = {
 PATHS = {"main": "msm_best at 2^12 and 2^20",
          "per_window": "msm at 2^20, 16384 scan lanes, both segment starts",
          "cli": "tpu_msm_torch.cli.profiler --check-kernels",
+         "golden": "msm on the card of every golden MSM case (n 16 to "
+                   "1024, 8 or 64 scan lanes)",
          "roofline": "tpu_msm_torch.benches.montmul_benchmark at ilp 1 and "
                      "4, then utils.profiling.roofline(20)"}
 
@@ -1821,6 +2000,7 @@ def main() -> int:
     launches["cli"] = phase_cli()
     lap(5)
     phase_montmul(dev, entries)
+    phase_bound_model(dev)
     launches["roofline"] = phase_roofline(dev)
     lap(7)
     more = {log_n: bench_inputs(1 << log_n) for log_n in (16, 18)}
@@ -1837,7 +2017,7 @@ def main() -> int:
     lap(11)
     phase_hybrid(dev, inputs, expected)
     lap(12)
-    phase_golden(dev)
+    launches["golden"] = phase_golden(dev, entries)
     lap(13)
     phase_tensors(dev, inputs, expected)
     lap(14)

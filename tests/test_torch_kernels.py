@@ -309,21 +309,23 @@ def test_wrappers_run_plain_on_cpu_tensors():
 
 # The main path's widths at 2^20 with the tuned row (16 windows, 8192
 # lanes, 65536 buckets, fanout 1024), the per-window route's fold (2048
-# lanes) and the 8192 elements below the crossover that chip_smoke.py
-# times, on an H100's 132 SMs, and the kernel the note at
-# cuda_curve.GROUP_BELOW_PER_SM gives each.
+# lanes) and scan step (pmadd at 16384 lanes), the 8192 elements below the
+# crossover that chip_smoke.py times and a pmadd that fills the card, on an
+# H100's 132 SMs, and the kernel the note at cuda_curve.GROUP_BELOW_PER_SM
+# gives each.
 H100_SMS = 132
 MAIN_PATHS = [("padd", 16 * 65537, "thread"), ("padd", 16 * 8192, "thread"),
               ("padd", 16 * 1024, "thread"), ("padd", 8192, "group"),
               ("padd", 16, "group"), ("padd", 1, "group"),
               ("fold_add", 16 * 1024, "thread"), ("fold_add", 8192, "group"),
-              ("fold_add", 2048, "group")]
+              ("fold_add", 2048, "group"), ("pmadd", 16384, "thread"),
+              ("pmadd", 1 << 20, "thread"), ("pmadd", 2048, "group")]
 
 
 @pytest.mark.parametrize("name,width,path", MAIN_PATHS)
 def test_kernel_path_at_main_path_widths(name, width, path):
-    """padd and fold_add take their kernel from the one rule."""
-    assert name in ("padd", "fold_add")
+    """padd, fold_add and pmadd take their kernel from the one rule."""
+    assert name in ("padd", "fold_add", "pmadd")
     assert cuda_curve.kernel_path(width, H100_SMS) == path
 
 
@@ -338,12 +340,14 @@ def test_kernel_path_crossover(sms):
 
 @pytest.mark.parametrize("path", [None, "thread", "group"])
 def test_kernel_path_on_cpu_runs_plain(path):
-    """On CPU tensors either path of padd and fold_add runs the plain
-    version and counts no launch."""
+    """On CPU tensors either path of padd, fold_add and pmadd runs the
+    plain version and counts no launch."""
     rng = np.random.RandomState(18)
     p3 = [_t(a) for a in _proj_limbs(rng, _points(rng, 8))]
+    q2 = [_t(a) for a in interop.affine_points_to_limbs(_points(rng, 8))]
     steps = [torch.stack([a, a], dim=1) for a in p3]  # (16, 2, 8)
-    for name, ops in (("padd", (*p3, *p3)), ("fold_add", steps)):
+    for name, ops in (("padd", (*p3, *p3)), ("fold_add", steps),
+                      ("pmadd", (*p3, *q2))):
         kernel = getattr(cuda_curve, name)
         plain = getattr(cuda_curve, name + "_plain")
         before = (plain.calls, kernel.launches, kernel.group_launches)
@@ -358,6 +362,8 @@ def test_kernel_paths_reject_unknown_path():
     a = torch.zeros((16, 2), dtype=torch.int32)
     with pytest.raises(ValueError, match="path"):
         cuda_curve.padd(a, a, a, a, a, a, path="warp")
+    with pytest.raises(ValueError, match="path"):
+        cuda_curve.pmadd(a, a, a, a, a, path="warp")
     b = torch.zeros((16, 2, 2), dtype=torch.int32)
     with pytest.raises(ValueError, match="path"):
         cuda_curve.fold_add(b, b, b, path="warp")
@@ -469,11 +475,12 @@ def _edge_affine_on(dev, rng, n):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name,path", [("padd", "thread"), ("padd", "group"),
-                                       ("pmadd", None), ("jac_madd", None),
+                                       ("pmadd", None), ("pmadd", "thread"),
+                                       ("pmadd", "group"), ("jac_madd", None),
                                        ("jac_add", None)])
 def test_elementwise_kernels_match_plain(cuda, name, path):
-    """padd (both kernels), pmadd, jac_madd and jac_add on the edge pairs
-    (infinity on either side, P == Q, P == -Q) at 1000 lanes (not a
+    """padd and pmadd (both kernels each), jac_madd and jac_add on the edge
+    pairs (infinity on either side, P == Q, P == -Q) at 1000 lanes (not a
     multiple of either block) and at one lane, bit for bit."""
     rng = np.random.RandomState(25)
     if name == "padd":
@@ -491,12 +498,15 @@ def test_elementwise_kernels_match_plain(cuda, name, path):
     kernel = getattr(cuda_curve, name)
     plain = getattr(cuda_curve, name + "_plain")
     run = (lambda *a: kernel(*a, path=path)) if path else kernel
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    group = hasattr(kernel, "group_launches") and (
+        path or cuda_curve.kernel_path(1000, sms)) == "group"
     before = kernel.launches
-    groups = cuda_curve.padd.group_launches
+    groups = getattr(kernel, "group_launches", 0)
     got, want = run(*ops), plain(*ops)
     torch.cuda.synchronize()
     assert kernel.launches == before + 1
-    assert cuda_curve.padd.group_launches == groups + (path == "group")
+    assert getattr(kernel, "group_launches", 0) == groups + group
     assert all(torch.equal(g, w) for g, w in zip(got, want))
     one = run(*(a[:, :1].contiguous() for a in ops))
     assert all(torch.equal(g, w[:, :1]) for g, w in zip(one, want))

@@ -127,12 +127,16 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("ilp", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("ilp", range(1, 9))
 def test_montmul_kernel_matches_plain(cuda, ilp):
-    """Bit for bit, with accumulators >= P among the starting values."""
+    """Bit for bit at every ilp, with starting accumulators >= P (as the XOR
+    fold makes them), 0, P - 1 and 2^256 - 1 among the lanes."""
     x = _t(_inputs(1000)).to(cuda)
     a = x.clone()
     a[15, :100] = 0xFFFF  # a >= P on the first 100 lanes
+    for lanes, v in ((slice(100, 110), 0), (slice(110, 120), P - 1),
+                     (slice(120, 130), R - 1)):
+        a[:, lanes] = _t(interop.ints_to_limbs([v]))[:, :1].to(cuda)
     got = cuda_curve.montmul_chain(a, x, 3, 2, ilp)
     want = cuda_curve.montmul_chain_plain(a, x, 3, 2, ilp)
     torch.cuda.synchronize()

@@ -7,7 +7,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from tpu_msm_torch.benches import montmul_benchmark  # noqa: E402
+from tpu_msm_torch.benches import ab_benchmark, montmul_benchmark  # noqa: E402
 from tpu_msm_torch.bindings import benchmarks  # noqa: E402
 from tpu_msm_torch.models import bn254  # noqa: E402
 from tpu_msm_torch.ops import cuda_curve, field, pippenger  # noqa: E402
@@ -96,11 +96,47 @@ def no_card(monkeypatch):
     lambda: profiling.sm_clock_hz(),
     lambda: benchmarks.benchmark_gpu_msm_best(10),
     lambda: montmul_benchmark.run(lanes=128, chain=1, steps=1, iters=1),
+    lambda: ab_benchmark.run(["."], log_n=4, turns=1, calls=1),
 ], ids=["roofline", "profile_stages", "time_fn", "sm_clock",
-        "benchmark_gpu_msm_best", "montmul_benchmark"])
+        "benchmark_gpu_msm_best", "montmul_benchmark", "ab_benchmark"])
 def test_measurements_refuse_without_a_card(no_card, call):
     with pytest.raises(RuntimeError, match="CUDA device"):
         call()
+
+
+def test_ab_turns_alternate_which_tree_goes_first():
+    assert ab_benchmark.turn_order(["old", "new"], 3) == [
+        "old", "new", "new", "old", "old", "new"]
+
+
+def test_model_counts_two_slots_a_wide_product():
+    """264 = two issue slots for each of the 128 wide products, one for
+    each of the 8 low ones."""
+    assert profiling.WIDE_IMAD_SLOTS == 2
+    assert profiling.CIOS_MULS_PER_MONT_MUL == 2 * 128 + 8
+
+
+@pytest.mark.parametrize("op,kind", [
+    ("IMAD.WIDE.U32", "wide"), ("IMAD.WIDE.U32.X", "wide"),
+    ("IMAD.WIDE", "wide"), ("IMAD.HI.U32", "hi"), ("IMAD", "narrow"),
+    ("IMAD.SHL.U32", "narrow"), ("IMUL", "narrow"), ("IMAD.X", "x"),
+    ("IMAD.MOV.U32", "mov"), ("IADD3.X", None), ("LOP3.LUT", None)])
+def test_sass_kinds(op, kind):
+    assert montmul_benchmark.imad_kind(op) == kind
+
+
+def test_pipe_rates_count_each_slot_model():
+    """A rate of one product an SM clock asks one product's instructions
+    over 32 lanes: wide and hi count once or twice."""
+    sass = {"per_product_kinds": {"wide": 16, "hi": 4, "narrow": 8, "x": 2,
+                                  "mov": 2},
+            "per_product_all": {"IMAD.WIDE.U32": 16, "IADD3.X": 32}}
+    out = montmul_benchmark.pipe_rates(132 * 2e9, sass, 132, 2e9)
+    assert out["products_per_sm_clock"] == pytest.approx(1.0)
+    assert out["imad_slots_if_wide_is_1"] == pytest.approx(32 / 32)
+    assert out["imad_slots_if_wide_is_2"] == pytest.approx(52 / 32)
+    assert out["issue"] == pytest.approx(48 / 32)
+    assert out["imad_ceiling"] == 2.0
 
 
 def test_trace_refuses_without_a_card(no_card, tmp_path):

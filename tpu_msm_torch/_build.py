@@ -110,6 +110,7 @@ def load() -> ctypes.CDLL:
                 "tpu_msm_digit_hist": [vp, i32, i64, vp, i32, i32, i32, i32,
                                        i64, i32, vp],
                 "tpu_msm_pmadd": [vp] * 8 + [i64, vp],
+                "tpu_msm_pmadd_group": [vp] * 8 + [i64, vp],
                 "tpu_msm_jac_madd": [vp] * 8 + [i64, vp],
                 "tpu_msm_jac_add": [vp] * 9 + [i64, vp],
                 "tpu_msm_scan_madd_rows": [vp] * 5 + [i32, i32, vp],

@@ -10,11 +10,13 @@ the JAX script's keys, beside the card's name and power limit:
     python -m tpu_msm_torch.benches.montmul_benchmark --lanes 65536 \\
         --chain 64 --steps 8 --iters 3 [--ilp 4] [--sass]
 
-`roofline_per_s` is the H100 model of `utils/profiling.py` (264 32-bit
-multiplies a product at 64 a clock per SM). `--sass` also prints the
-IMAD-family instructions that `cuobjdump -sass` finds in the kernel at ilp
-1 and ilp 2; their difference is what one more product costs. Needs a CUDA
-device and raises without one.
+`roofline_per_s` is the H100 model of `utils/profiling.py` (the multiply
+pipe's issue slots a product at 64 lanes a clock per SM). `--sass` also
+prints the instructions that `cuobjdump -sass` finds in the kernel at ilp
+1 and ilp 2 (their difference is what one more product costs, by kind:
+wide, hi, narrow, .X, .MOV) and what the measured rate asks of the
+multiply pipe and of the schedulers (`pipe_rates`). Needs a CUDA device
+and raises without one.
 """
 
 from __future__ import annotations
@@ -79,12 +81,33 @@ _INSN = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?"
                    r"([A-Z][A-Z0-9_.]*)")
 _KERNELS = (("ilp1", "montmul_chain_kernelILi1E"),
             ("ilp2", "montmul_chain_kernelILi2E"))
+# The integer multiply pipe's instructions by kind: wide (.WIDE, a 32 x 32
+# -> 64 product, with or without the carry in), hi (.HI, the high half), x
+# (IMAD.X, a narrow multiply-add with the carry in), mov (IMAD.MOV, a move
+# the compiler puts on the multiply pipe) and narrow (the rest: IMAD,
+# IMAD.SHL, IMAD.IADD, IMUL).
+IMAD_KINDS = ("wide", "hi", "narrow", "x", "mov")
+
+
+def imad_kind(op: str):
+    """The kind of an IMAD-family mnemonic (IMAD_KINDS), else None."""
+    if not op.startswith(("IMAD", "IMUL")):
+        return None
+    mods = op.split(".")[1:]
+    for mod, kind in (("WIDE", "wide"), ("HI", "hi"), ("MOV", "mov"),
+                      ("X", "x")):
+        if mod in mods:
+            return kind
+    return "narrow"
 
 
 def sass_counts() -> dict:
-    """{"ilp1": {mnemonic: count}, "ilp2": ..., "per_product": ...}: the
-    IMAD-family and IMUL instructions of montmul_chain_kernel in the built
-    library, by `cuobjdump -sass`; "per_product" is ilp 2 minus ilp 1."""
+    """The instructions of montmul_chain_kernel in the built library, by
+    `cuobjdump -sass`: "ilp1" and "ilp2" ({mnemonic: count} of the
+    IMAD family), "per_product" (ilp 2 minus ilp 1: one product's IMAD
+    family by mnemonic), "per_product_kinds" (the same by IMAD_KINDS) and
+    "per_product_all" (every mnemonic of one product, the carry chains'
+    IADD3 among them)."""
     from tpu_msm_torch import _build
 
     _build.load()
@@ -99,13 +122,45 @@ def sass_counts() -> dict:
                       None)
             continue
         m = _INSN.search(line)
-        if fn and m and m.group(1).startswith(("IMAD", "IMUL")):
+        if fn and m:
             counts.setdefault(fn, Counter())[m.group(1)] += 1
     if set(counts) != {"ilp1", "ilp2"}:
         raise RuntimeError("montmul_chain_kernel not found in the SASS")
     per = counts["ilp2"] - counts["ilp1"]
-    return {"ilp1": dict(counts["ilp1"]), "ilp2": dict(counts["ilp2"]),
-            "per_product": dict(per)}
+    kinds = Counter({k: 0 for k in IMAD_KINDS})
+    for op, k in per.items():
+        if imad_kind(op):
+            kinds[imad_kind(op)] += k
+
+    def imad(c):
+        return {op: k for op, k in c.items() if imad_kind(op)}
+
+    return {"ilp1": imad(counts["ilp1"]), "ilp2": imad(counts["ilp2"]),
+            "per_product": imad(per), "per_product_kinds": dict(kinds),
+            "per_product_all": dict(per)}
+
+
+def pipe_rates(mont_mul_per_s: float, sass: dict, sms: int,
+               clock_hz: float) -> dict:
+    """What a measured product rate asks of the card, per SM clock: the
+    multiply pipe's warp instructions (one product's IMAD family from
+    `sass`) counting a wide or hi IMAD as one issue slot and as two,
+    against the pipe's ceiling of IMAD_PER_CLOCK_PER_SM / 32 slots; and all
+    of one product's instructions against the four schedulers' issue (one
+    warp instruction a clock each). A slot count whose rate passes its
+    ceiling is refuted by the measurement."""
+    from tpu_msm_torch.utils import profiling
+
+    kinds = sass["per_product_kinds"]
+    one = sum(kinds.values())
+    two = one + kinds["wide"] + kinds["hi"]
+    per_clock = mont_mul_per_s / (sms * clock_hz) / 32
+    return {"products_per_sm_clock": per_clock * 32,
+            "imad_slots_if_wide_is_1": per_clock * one,
+            "imad_slots_if_wide_is_2": per_clock * two,
+            "imad_ceiling": profiling.IMAD_PER_CLOCK_PER_SM / 32,
+            "issue": per_clock * sum(sass["per_product_all"].values()),
+            "issue_ceiling": 4.0, "sms": sms, "clock_hz": clock_hz}
 
 
 def main(argv=None) -> int:
@@ -119,7 +174,8 @@ def main(argv=None) -> int:
                     help="independent chains per lane (1 = one dependent "
                          "chain)")
     ap.add_argument("--sass", action="store_true",
-                    help="also count the kernel's IMAD-family instructions")
+                    help="also count the kernel's instructions and what "
+                         "the rate asks of the multiply pipe")
     args = ap.parse_args(argv)
     out = run(args.lanes, args.chain, args.steps, args.iters, args.ilp)
     c = out["cios"]
@@ -128,7 +184,12 @@ def main(argv=None) -> int:
           f"{c['roofline_per_s'] / 1e9:.3f} G/s) on {out['card']}",
           flush=True)
     if args.sass:
+        from tpu_msm_torch.utils import profiling
+
         out["sass"] = sass_counts()
+        out["pipe"] = pipe_rates(c["mont_mul_per_s"], out["sass"],
+                                 profiling.sm_count(),
+                                 profiling.sm_clock_hz())
     print(json.dumps(out))
     return 0
 

@@ -250,8 +250,10 @@ def _check_routes(device, lanes: int = CHECK_LANES):
             bad.append("curve")
 
     args = (*p, *q_aff)
-    check("pmadd", cc.pmadd(*args), cc.pmadd_plain(*args), curve.proj_eq,
-          curve.proj_madd(p, q_aff))
+    for path in cc.PATHS:
+        check("pmadd" + _GROUP[path], cc.pmadd(*args, path=path),
+              cc.pmadd_plain(*args), curve.proj_eq,
+              curve.proj_madd(p, q_aff))
     args = (*p, *q)
     for path in cc.PATHS:
         check("padd" + _GROUP[path], cc.padd(*args, path=path),
@@ -339,6 +341,7 @@ def check_kernels(device="cuda") -> int:
     for f in counters.values():
         f.launches = 0
     cc.padd.group_launches = cc.fold_add.group_launches = 0
+    cc.pmadd.group_launches = 0
     failed = _check_routes(device)
     torch.cuda.synchronize(device)
     for route, bad in failed.items():
@@ -347,6 +350,7 @@ def check_kernels(device="cuda") -> int:
     launches = {k: f.launches for k, f in counters.items()}
     launches["padd_group"] = cc.padd.group_launches
     launches["fold_add_group"] = cc.fold_add.group_launches
+    launches["pmadd_group"] = cc.pmadd.group_launches
     log.info("kernel launches %s", json.dumps(launches))
     bad = [r for r, b in failed.items() if b]
     if bad:

@@ -12,17 +12,19 @@
 //                              it (curve.proj_double is proj_add(p, p))
 //   tpu_msm_fold_add,       <- fold_add_packed
 //   tpu_msm_fold_add_group
-//   tpu_msm_pmadd           <- pmadd_packed
+//   tpu_msm_pmadd,          <- pmadd_packed
+//   tpu_msm_pmadd_group
 //   tpu_msm_jac_madd        <- madd_packed
 //   tpu_msm_jac_add         <- add_packed
 //   tpu_msm_scan_madd_rows  <- scan_madd_packed
 //
-// What bounds them on the card: 32-bit integer multiplies. A Montgomery
-// product is 128 32x32->64 multiplies (two IMADs each), and a mixed add is 11
-// of them, against 256 bytes moved per scan step and lane. So the design keeps
-// every intermediate in registers and reads each operand once: the TPU grid's
-// sequential step axis becomes a loop inside the thread, and the accumulator
-// (24 words) never leaves registers. Lanes are contiguous in memory, so each
+// What bounds them on the card: the integer multiply pipe. A Montgomery
+// product (bn254.cuh, on PTX carry chains) is 128 wide 32x32->64 products
+// and 8 low ones, 264 issue slots of the pipe (a wide IMAD takes two), and
+// a mixed add is 11 products, against 256 bytes moved per scan step and
+// lane. So the design keeps every intermediate in registers and reads each
+// operand once: the TPU grid's sequential step axis becomes a loop inside
+// the thread, and the accumulator (24 words) never leaves registers. Lanes are contiguous in memory, so each
 // warp's loads and stores of one limb row coalesce into 128-byte lines.
 //
 // The scan. Each thread runs a dependent chain of mixed adds whose CIOS
@@ -36,7 +38,7 @@
 // enough for kScanMinBlocks blocks on each SM. The step's eleven products
 // call one out-of-line copy of the product (fp_mont_mul_outlined): eleven
 // inlined copies outgrow the instruction caches and take more registers.
-// ptxas for sm_90a (CUDA 12.8): 118 registers, no spills, no stack, so 4
+// ptxas for sm_90a (CUDA 12.8): 116 registers, no spills, no stack, so 4
 // blocks (16 warps, 4 a scheduler) an SM. The other mixed-add kernels
 // (pmadd, scan_madd_rows) call the same copy and gain as well.
 //
@@ -49,7 +51,8 @@
 // products, six at a time, so an add waits on two products and on the
 // linear steps between them. The chains are bound by that latency (one
 // product's is measured by montmul_chain on one lane), not by the card's
-// throughput; on the H100 an add takes about 4.4 product latencies.
+// throughput; on the H100 an add takes about 3.6 product latencies (4.4
+// with the product on a 64-bit accumulator, before the carry chains).
 //
 // padd and fold_add (the sides stage's reduction: the lane-carry scan, the
 // query adds, the rolled tree and the fold). Each computes proj_add, and
@@ -60,38 +63,45 @@
 //   against twelve products). One thread an element (padd_kernel,
 //   fold_add_kernel), the twelve products through fp_mont_mul_outlined as
 //   in the scan, __launch_bounds__(kThreads, kAddMinBlocks). ptxas for
-//   sm_90a (CUDA 12.8): padd_kernel 144 -> 122 registers, fold_add_kernel
-//   142 -> 116, no spills or stack before or after, so 4 blocks (16 warps)
-//   an SM, not 3. (jac_add_kernel 168 and jac_madd_kernel 140 registers,
-//   no spills: they inline fp_mont_mul and are unchanged.)
+//   sm_90a (CUDA 12.8): padd_kernel 120 registers, fold_add_kernel 118
+//   (144 and 142 with the products inline), no spills or stack, so 4
+//   blocks (16 warps) an SM, not 3. (jac_add_kernel 168 and jac_madd_kernel
+//   127 registers, no spills: they inline fp_mont_mul.)
 // - Widths that leave the card short of warps (the rolled tree at
 //   W·fanout = 16,384 elements, the fold's 16,384 chains of 64 adds: 128
 //   blocks, one warp a scheduler): latency. One thread an element takes
-//   about 12.5 µs an add at any width up to there. The group kernels
-//   (padd_group_kernel, fold_add_group_kernel) give each element to eight
-//   lanes calling proj_add_group: eight times the warps, and a chain waits
+//   about 9 µs an add at any width up to there. The group kernels
+//   (padd_group_kernel, fold_add_group_kernel, and pmadd_group_kernel for
+//   the mixed add) give each element to eight lanes calling
+//   proj_add_group (proj_madd_group): eight times the warps, and a chain waits
 //   on two products an add, not twelve, but every lane repeats the linear
 //   steps, the selects and the exchanges, about 2.2 times the instructions
 //   of one thread an element. So the group kernels win only well below a
 //   full card: cuda_curve.kernel_path takes them below GROUP_BELOW_PER_SM
-//   (80) elements an SM, the crossover measured for both (about 10,700
-//   on 132 SMs). The main path's widths all lie above it; the per-window
-//   route's rolled tree (2048) and fold (2048 lanes) below.
+//   (80) elements an SM, near the crossover measured for all three (83-89
+//   elements an SM, about 11,000-11,800 on 132 SMs). The main path's
+//   widths all lie above it, and so does the per-window route's scan step
+//   (pmadd at 16,384 lanes); that route's rolled tree (2048) and fold (2048
+//   lanes) lie below.
 // - The group kernels' loads: rank r loads word r of each coordinate (two
 //   limb rows) and the group exchanges the words by __shfl_sync, six loads
 //   a lane for a point, not 48; rank r stores word r. Against every lane
 //   loading the whole point, this took both group kernels 10-25 % faster,
 //   and the fold's prefetch of the next step's operand to three registers,
 //   which ended fold_add_group_kernel's 60-byte spill (128 -> 113
-//   registers; padd_group_kernel 111 -> 98).
+//   registers then; 97 now, padd_group_kernel 92, pmadd_group_kernel
+//   122).
 // - Two or three products interleaved in one out-of-line call (more
 //   independent work for the latency-bound widths) did not help: the fold
 //   at 16,384 lanes 1-4 % faster, the lane scan at 131,072 2-5 % slower.
 //
 // pmadd, jac_madd and jac_add read their operands once and write the sum
 // once, 11-20 products an element, bound by the multiplies once N fills
-// the card; at the per-window path's 16384 lanes a pmadd launch is 128
-// blocks, one wave. The Jacobian adders compute their doubling fallback
+// the card. At the per-window path's 16384 lanes a pmadd_kernel launch is
+// 128 blocks, one warp a scheduler, and waits on its eleven products in
+// sequence; the group kernel waits on two levels of them (five, then six)
+// but repeats the linear steps on eight lanes, and loses there on the H100
+// (PERF.md §6). The Jacobian adders compute their doubling fallback
 // only on the lanes that take it (P == Q), a rare divergent branch, where
 // the TPU kernels computed it on every lane and selected.
 //
@@ -368,7 +378,8 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// Elementwise projective + affine mixed add of (16, n) u16-row operands.
+// Elementwise projective + affine mixed add of (16, n) u16-row operands,
+// one thread an element: the path for widths that fill the card.
 __global__ void __launch_bounds__(kThreads)
     pmadd_kernel(const uint32_t* __restrict__ px, const uint32_t* __restrict__ py,
                  const uint32_t* __restrict__ pz, const uint32_t* __restrict__ qx,
@@ -377,15 +388,43 @@ __global__ void __launch_bounds__(kThreads)
                  long long n) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  Proj p;
-  p.x = load_u16_rows(px, n, i);
-  p.y = load_u16_rows(py, n, i);
-  p.z = load_u16_rows(pz, n, i);
-  const Proj r =
-      proj_madd_complete(p, load_u16_rows(qx, n, i), load_u16_rows(qy, n, i));
+  const Proj r = proj_madd_complete(load_proj(px, py, pz, n, i),
+                                    load_u16_rows(qx, n, i),
+                                    load_u16_rows(qy, n, i));
   store_u16_rows(ox, n, i, r.x);
   store_u16_rows(oy, n, i, r.y);
   store_u16_rows(oz, n, i, r.z);
+}
+
+// The same add, one group of kAddGroup lanes an element (proj_madd_group):
+// the path for widths that leave the card short of warps. Loads and stores
+// as in padd_group_kernel: rank r loads word r of P's three coordinates and
+// of Q's two (five loads a lane) and stores word r of each coordinate of
+// the sum; the spare groups of a ragged last block add element n - 1 again
+// and store nothing.
+__global__ void __launch_bounds__(kThreads, kGroupMinBlocks)
+    pmadd_group_kernel(const uint32_t* __restrict__ px,
+                       const uint32_t* __restrict__ py,
+                       const uint32_t* __restrict__ pz,
+                       const uint32_t* __restrict__ qx,
+                       const uint32_t* __restrict__ qy,
+                       uint32_t* __restrict__ ox, uint32_t* __restrict__ oy,
+                       uint32_t* __restrict__ oz, long long n) {
+  const long long e =
+      ((long long)blockIdx.x * blockDim.x + threadIdx.x) / kAddGroup;
+  const int rank = threadIdx.x % kAddGroup;
+  const long long i = e < n ? e : n - 1;
+  const Words3 wp = load_words(px, py, pz, n, i, rank);
+  const uint32_t wx = load_u16_word(qx, n, i, rank);
+  const uint32_t wy = load_u16_word(qy, n, i, rank);
+  const Proj r = proj_madd_group(proj_from_group_words(wp),
+                                 fp_from_group_words(kWarpMask, wx),
+                                 fp_from_group_words(kWarpMask, wy), rank,
+                                 kWarpMask);
+  if (e >= n) return;
+  store_u16_rows_rank(ox, n, i, r.x, rank);
+  store_u16_rows_rank(oy, n, i, r.y, rank);
+  store_u16_rows_rank(oz, n, i, r.z, rank);
 }
 
 // Elementwise Jacobian + affine mixed add of (16, n) u16-row operands.
@@ -521,6 +560,16 @@ int tpu_msm_pmadd(const uint32_t* px, const uint32_t* py, const uint32_t* pz,
                   uint32_t* oy, uint32_t* oz, long long n, void* stream) {
   pmadd_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
       px, py, pz, qx, qy, ox, oy, oz, n);
+  return (int)cudaGetLastError();
+}
+
+int tpu_msm_pmadd_group(const uint32_t* px, const uint32_t* py,
+                        const uint32_t* pz, const uint32_t* qx,
+                        const uint32_t* qy, uint32_t* ox, uint32_t* oy,
+                        uint32_t* oz, long long n, void* stream) {
+  pmadd_group_kernel<<<group_blocks_for(n), kThreads, 0,
+                       (cudaStream_t)stream>>>(px, py, pz, qx, qy, ox, oy,
+                                               oz, n);
   return (int)cudaGetLastError();
 }
 

@@ -11,20 +11,35 @@
 // once, the accumulator and the chains never leave registers, and the result
 // is written once.
 //
-// What bounds it: 32-bit integer multiplies, nothing else. A CIOS product
-// (bn254.cuh fp_mont_mul) is 8 outer steps of 8 wide products a_i * b_j, one
-// low product m and 8 wide products m * p_j; a wide product is two multiply
-// instructions (low and high), so 264 multiplies a product, against 128
-// bytes of u16 rows in and 64 out per lane for the whole chain. The design
-// gives the card enough independent work to keep its multipliers fed: one
-// thread per lane, 65,536 lanes are 512 blocks of 128 threads, about four
-// blocks an SM; ilp > 1 adds independent chains inside each thread. The
-// kernel is what the roofline (utils/profiling.py) measures the field core
-// against.
+// What bounds it: the integer multiply pipe, once enough products run side
+// by side. The kernel's body is the field product (bn254.cuh fp_mont_mul,
+// the CIOS product on PTX carry chains), so its design is the product's:
+// each row is two independent carry chains of multiply-adds, and the
+// reduction's chains overlap them. In the built SASS for sm_90a (CUDA
+// 12.8) one product is 119 wide IMADs (IMAD.WIDE.U32, most with the carry
+// in), 9 IMAD.HI and 9 narrow IMADs, the carries between pairs of words in
+// IADD3.X. A wide IMAD holds the multiply pipe for two issue slots (the
+// card shows it: PERF.md §7), so a product asks 265 slots of a pipe that
+// takes 64 lanes' worth an SM clock; profiling.py's model counts 264 (two
+// for each of the 128 wide products and one for each of the 8 m).
+// Against 128 bytes of u16 rows in and 64 out per lane for the whole chain
+// the bytes are nothing.
 //
-// A rotated or XOR-folded accumulator may be >= P. The CIOS core still ends
-// canonical for a < 2^256 and b = x < P: every outer step keeps the running
-// value below b + P < 2P, so the final conditional subtract suffices.
+// Latency binds at ilp 1 on few lanes: one dependent product took 0.69 µs
+// with the 64-bit accumulator of the old core and takes about half a
+// microsecond now. Throughput needs independent products in flight: one
+// thread per lane, and ilp > 1 adds independent chains inside each thread.
+// The launch: 65,536 lanes are 512 blocks of kThreads = 128, about four
+// blocks (16 warps, 4 a scheduler) on each of 132 SMs, all resident in one
+// wave. ptxas (sm_90a, CUDA 12.8) gives the kernel 40 registers at ilp 1 and
+// 94 at ilp 8, no spills: five blocks an SM fit at every ilp, more than the
+// grid brings, so no minimum of blocks is set. (A minimum of four let ptxas
+// take up to 128 registers, and it spilled 8 bytes at ilp 8.) The kernel is
+// what the roofline (utils/profiling.py) measures the field core against.
+//
+// A rotated or XOR-folded accumulator may be >= P. The product still ends
+// canonical for a < 2^256 and b = x < P: every row keeps the running value
+// below b + P < 2P, so the final conditional subtract suffices.
 //
 // The kernel allocates nothing and does not synchronise. The C entry
 // launches on the caller's stream and returns cudaGetLastError(), or

@@ -19,17 +19,19 @@ There is no fallback from one to the other.
                                          horner_fold (:690-708)
   fold_add        fold_add_kernel,       fold_add_packed (:953)
                   fold_add_group_kernel
-  pmadd           pmadd_kernel           pmadd_packed (:988)
+  pmadd           pmadd_kernel,          pmadd_packed (:988)
+                  pmadd_group_kernel
   jac_madd        jac_madd_kernel        madd_packed (:367)
   jac_add         jac_add_kernel         add_packed (:385)
   scan_madd_rows  scan_madd_rows_kernel  scan_madd_packed (:565)
   montmul_chain   montmul_chain_kernel   benches/montmul_benchmark.py `run`
                                          (:89-107, built by _build_kernel)
 
-padd and fold_add each launch one of two kernels: one thread an element
-(padd_kernel, fold_add_kernel; for fold_add an element is a lane's chain)
-or eight lanes an element (padd_group_kernel, fold_add_group_kernel),
-whichever `kernel_path` gives for the width and the card's SM count.
+padd, fold_add and pmadd each launch one of two kernels: one thread an
+element (padd_kernel, fold_add_kernel, pmadd_kernel; for fold_add an
+element is a lane's chain) or eight lanes an element (padd_group_kernel,
+fold_add_group_kernel, pmadd_group_kernel), whichever `kernel_path` gives
+for the width and the card's SM count.
 
 The fused MSM path runs scan_madd (one launch per group of windows), padd,
 fold_add, window_tail and horner; the per-window path runs pmadd (one
@@ -46,8 +48,8 @@ the top of `csrc/ec_kernels.cu` and `csrc/montmul.cu` (the montmul kernel is
 in its own source).
 
 Counters: `<wrapper>.launches` counts kernel launches (both kernels of
-padd and fold_add; `<wrapper>.group_launches` those of the group kernel
-alone) and `<plain>.calls` counts plain-version calls; callers may reset
+padd, fold_add and pmadd; `<wrapper>.group_launches` those of the group
+kernel alone) and `<plain>.calls` counts plain-version calls; callers may reset
 them to 0.
 Operands are int32 tensors that carry u32 bit patterns.
 """
@@ -165,25 +167,29 @@ def padd_plain(ax, ay, az, bx, by, bz):
 padd_plain.calls = 0
 
 
-# padd and fold_add each have two kernels: one thread an element (a lane's
-# chain, for fold_add), or a group of eight lanes an element. One thread an
-# element is the faster wherever the card is full; with few elements an SM
-# it is latency-bound (one padd launch takes about 0.0125 ms from 2048 to
-# 8192 elements), and eight lanes an element give eight times the warps at
-# about 2.2 times the instructions. Both kernels timed by chip_smoke.py
-# phase 2 (NVIDIA H100 80GB HBM3, 700.00 W, 132 SMs; PERF.md §6): padd
-# group 0.0105 ms against thread 0.0126 at 8192 elements, 0.0182 against
-# 0.0133 at 16,384; fold_add at 64 steps group 0.528 against 0.697 at 8192
-# lanes, 1.021 against 0.698 at 16,384. The group time grows linearly
-# there, so both crossovers fall at 81-83 elements an SM.
+# padd, fold_add and pmadd each have two kernels: one thread an element (a
+# lane's chain, for fold_add), or a group of eight lanes an element. One
+# thread an element is the faster wherever the card is full; with few
+# elements an SM it is latency-bound (one padd or pmadd launch takes about
+# 0.0085-0.0095 ms from 2048 to 16,384 elements), and eight lanes an
+# element give eight times the warps at about 2.2 times the instructions.
+# Both kernels of each timed by chip_smoke.py phase 2 (NVIDIA H100 80GB
+# HBM3, 700.00 W, 132 SMs; PERF.md §6), with the field product on carry
+# chains: padd group 0.0071 ms against thread 0.0089 at 8192 elements,
+# 0.0117 against 0.0095 at 16,384; pmadd group 0.0046, 0.0069, 0.0115
+# against thread 0.0081, 0.0083, 0.0087 at 4096, 8192 and 16,384; fold_add
+# at 64 steps group 0.300 against 0.449 at 8192 lanes, 0.577 against 0.451
+# at 16,384. The group time grows linearly there, the thread time hardly,
+# so the crossovers fall at about 83 (pmadd) and 89 (padd) elements an SM;
+# one rule serves all three.
 GROUP_BELOW_PER_SM = 80
 PATHS = ("thread", "group")
 
 
 def kernel_path(width: int, sm_count: int) -> str:
-    """The kernel of padd or fold_add for `width` elements (fold_add: lanes)
-    on a card of `sm_count` SMs: "group" (eight lanes an element) below
-    GROUP_BELOW_PER_SM elements an SM, else "thread"."""
+    """The kernel of padd, pmadd or fold_add for `width` elements (fold_add:
+    lanes) on a card of `sm_count` SMs: "group" (eight lanes an element)
+    below GROUP_BELOW_PER_SM elements an SM, else "thread"."""
     return "group" if width < GROUP_BELOW_PER_SM * sm_count else "thread"
 
 
@@ -386,17 +392,22 @@ def pmadd_plain(px, py, pz, qx, qy):
 pmadd_plain.calls = 0
 
 
-def pmadd(px, py, pz, qx, qy):
-    """Kernel wrapper of pmadd_plain (same arguments and result)."""
+def pmadd(px, py, pz, qx, qy, path=None):
+    """Kernel wrapper of pmadd_plain (same arguments and result). `path`
+    ("thread" or "group") picks the kernel; None lets kernel_path choose."""
     ops = (px, py, pz, qx, qy)
+    _check_path(path)
     if not _build.on_cuda(*ops):
         return pmadd_plain(*ops)
-    out = _elementwise("tpu_msm_pmadd", ops)
+    entry = _entry("pmadd", path, px.shape[-1], px.device)
+    out = _elementwise(entry, ops)
     pmadd.launches += 1
+    pmadd.group_launches += entry.endswith("_group")
     return out
 
 
 pmadd.launches = 0
+pmadd.group_launches = 0
 
 
 def jac_madd_plain(x1, y1, z1, x2, y2):

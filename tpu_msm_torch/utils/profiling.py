@@ -15,15 +15,20 @@
   `kernel_vs_model`, the H100 model below over the microbench's rate.
 
 The model replaces the JAX package's v5e VPU constants. One CIOS product
-(`csrc/bn254.cuh` fp_mont_mul) is 8 outer steps of 8 wide products a_i·b_j,
-one low product m and 8 wide products m·p_j; a wide product is two 32-bit
-multiply instructions, low and high, so 264 multiplies. The card issues
-IMAD_PER_CLOCK_PER_SM 32-bit integer multiply-adds per clock per SM (the
-CUDA C++ Programming Guide's throughput table, compute capability 9.0), on
-every SM (read from the device), at the SM clock's maximum (nvidia-smi's
-clocks.max.sm). At 132 SMs and 1980 MHz that is 16.7 T multiplies/s, about
-63 G mont-mul/s. It is a model: the microbench holds it to account, and a
-measured rate above it would disprove it.
+(`csrc/bn254.cuh` fp_mont_mul) is 8 rows of 8 wide products a_i·b_j, one
+low product m and 8 wide products m·p_j: 128 wide (32 x 32 -> 64) products
+and 8 low ones. The card's integer multiply pipe takes
+IMAD_PER_CLOCK_PER_SM lanes an SM clock (the CUDA C++ Programming Guide's
+throughput table, compute capability 9.0), and a wide product holds it for
+WIDE_IMAD_SLOTS issue slots: two, as the card shows (chip_smoke.py phase 7,
+`phase_bound_model`: at ilp 4 and 8 montmul_chain's rate asks 1.79-1.80
+warp instructions an SM clock of a ceiling of 2 when a wide IMAD counts
+two, 0.93 when it counts one, and it stops growing from ilp 4 to ilp 8;
+PERF.md §7). So 264 slots a product, on every SM (read from the device),
+at the SM clock's maximum (nvidia-smi's clocks.max.sm). At 132 SMs and
+1980 MHz that is 16.7 T slots/s, about 63 G mont-mul/s. It is a model:
+the microbench holds it to account, and a measured rate above it would
+disprove it.
 
 Every measurement here needs a CUDA device and raises without one.
 """
@@ -40,7 +45,9 @@ import torch
 log = logging.getLogger("tpu_msm_torch.profiling")
 
 IMAD_PER_CLOCK_PER_SM = 64
-CIOS_MULS_PER_MONT_MUL = 8 * (16 + 1 + 16)
+WIDE_IMAD_SLOTS = 2
+# The multiply pipe's slots a product: 128 wide products, 8 low ones.
+CIOS_MULS_PER_MONT_MUL = WIDE_IMAD_SLOTS * 8 * 16 + 8
 # RCB mixed addition (Algorithm 8): 11 Montgomery products.
 MADD_MONT_MULS = 11
 # RCB complete projective addition (Algorithm 7, a = 0): 12.
