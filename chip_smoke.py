@@ -56,7 +56,13 @@ times them in turns where the rule between them (cuda_curve.kernel_path)
 is placed, pmadd at 8, 64, 4096, 8192, 16384, 65,536 and 2^20 elements
 (8 and 64: the scan lanes of the golden vectors' configurations, the
 widths the group kernel runs at in phase 13, where each pmadd launch is
-also held against the plain version on its own inputs). Phase 4
+also held against the plain version on its own inputs). It holds
+scan_madd_rows, a reduce-then-scan over K chunks of the steps, against its
+plain version at the same K (the rule's, cuda_curve.scan_rows_chunks, at
+(16, 3, 1024), a ragged (16, 101, 3000) and (16, 256, 4096); K = 1 there
+too), the rule's K against the serial scan by projective equality, and
+times K = 1 and the rule's K in turns; phase 6 times its three kernels
+apart by torch.profiler. Phase 4
 asserts the per-window route's pmadd launches, one a scan step, each on
 the kernel the rule gives its width. Phase 7 holds montmul_chain at every
 ilp 1-8 with accumulators >= P, 0, P - 1 and 2^256 - 1, and settles the
@@ -415,7 +421,8 @@ def time_paths(phase, name, shape, run, plain_ms, work, rule,
 # Phases.
 # --------------------------------------------------------------------------
 
-KERNEL_FUNCTIONS = ("scan_madd_rows_kernel", "scan_madd_kernel",
+KERNEL_FUNCTIONS = ("scan_madd_rows_kernel", "scan_madd_rows_totals_kernel",
+                    "scan_madd_rows_prefix_kernel", "scan_madd_kernel",
                     "jac_madd_kernel", "jac_add_kernel", "pmadd_kernel",
                     "pmadd_group_kernel",
                     "padd_group_kernel", "padd_kernel", "window_tail_kernel",
@@ -1037,6 +1044,8 @@ def phase_new_kernels(dev):
     import torch
 
     from tpu_msm_torch.ops import cuda_curve as cc
+    from tpu_msm_torch.ops import curve
+    from tpu_msm_torch.ops.curve import ProjPoint
 
     entries = {}
     check = checker(entries, 2)
@@ -1068,16 +1077,28 @@ def phase_new_kernels(dev):
               cc.jac_madd_plain(*ops))
         ops = (*cut(ja, width), *cut(jb, width))
         check("jac_add", [16, width], cc.jac_add(*ops), cc.jac_add_plain(*ops))
-    # scan_madd_rows at (16, 3, 1024): the --check-kernels shape, with a
-    # repeat (the accumulator doubles) and mid-scan sentinels.
+    # scan_madd_rows, a reduce-then-scan over K chunks of the steps
+    # (cuda_curve.scan_rows_chunks): at the rule's K against the plain
+    # version at the same K. At (16, 3, 1024), the --check-kernels shape,
+    # with a repeat (the accumulator doubles) and mid-scan sentinels; at a
+    # ragged (16, 101, 3000), 16 chunks of 6 steps and one of 5 on 132 SMs.
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def check_rows(gx, gy):
+        _, steps, lanes = gx.shape
+        k = cc.scan_rows_chunks(steps, lanes, sms)
+        check("scan_madd_rows", [16, steps, lanes, f"K {k}"],
+              cc.scan_madd_rows(gx, gy), cc.scan_madd_rows_plain(gx, gy, k))
+
     xs = [a_aff[0][:, :1024], b_aff[0][:, :1024], a_aff[0][:, :1024]]
     ys = [a_aff[1][:, :1024], b_aff[1][:, :1024], a_aff[1][:, :1024]]
     gx = torch.stack(xs, dim=1).contiguous()
     gy = torch.stack(ys, dim=1).contiguous()
     gx[:, 1, 500:520] = 0
     gy[:, 1, 500:520] = 0
-    check("scan_madd_rows", [16, 3, 1024], cc.scan_madd_rows(gx, gy),
-          cc.scan_madd_rows_plain(gx, gy))
+    check_rows(gx, gy)
+    check_rows(*(torch.stack([a.roll(k, dims=1)[:, :3000] for k in range(101)],
+                             dim=1).contiguous() for a in a_aff))
 
     # ---- the paths' shapes, checked, then kernel and plain timed ----
     # pmadd: both kernels at the golden configurations' 8 and 64 scan
@@ -1086,7 +1107,6 @@ def phase_new_kernels(dev):
     # 4096, 8192, 65,536 and 2^20 elements. At 8 and 16384 also a call over
     # 20 back-to-back calls with the host's launch, as the route makes
     # them; the plain version is timed at each width up to 16384.
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     recs = {}
     for width in (*GOLDEN_LANES, 4096, 8192, 16384, 65536, 1 << 20):
         ops = [tile(t[:, 1:], width) for t in (*pa, *b_aff)]
@@ -1140,20 +1160,44 @@ def phase_new_kernels(dev):
                                     ec_work(16 * big + 7 * dbl, big,
                                             96 + 48)))
     del aops
-    # scan_madd_rows at (16, 256, 4096); the plain version is timed at 8 of
-    # the 256 steps.
-    sx = torch.stack([a_aff[0].roll(k, dims=1)[:, :4096] for k in range(256)],
-                     dim=1).contiguous()
-    sy = torch.stack([a_aff[1].roll(k, dims=1)[:, :4096] for k in range(256)],
-                     dim=1).contiguous()
-    check("scan_madd_rows", [16, 256, 4096], cc.scan_madd_rows(sx, sy),
-          cc.scan_madd_rows_plain(sx, sy))
-    entries["scan_madd_rows"].update(timed(
-        "scan_madd_rows", [16, 256, 4096], lambda: cc.scan_madd_rows(sx, sy),
-        lambda: cc.scan_madd_rows_plain(sx[:, :8].contiguous(),
-                                        sy[:, :8].contiguous()),
-        ec_work(11 * finite(sx, sy), 256 * 4096, 32 + 48),
-        plain_shape=[16, 8, 4096]))
+    # scan_madd_rows at (16, 256, 4096), at one chunk and at the rule's K,
+    # each against the plain version at the same K, and the rule's against
+    # the serial scan by projective equality; then both timed in turns (1,
+    # K, K, 1), the plain version at 8 of the 256 steps in one chunk.
+    steps, lanes = 256, 4096
+    sx, sy = (torch.stack([a.roll(k, dims=1)[:, :lanes] for k in range(steps)],
+                          dim=1).contiguous() for a in a_aff)
+    rule = cc.scan_rows_chunks(steps, lanes, sms)
+    serial = cc.scan_madd_rows_plain(sx, sy)
+    check("scan_madd_rows", [16, steps, lanes, "K 1"],
+          cc.scan_madd_rows(sx, sy, chunks=1), serial)
+    got = cc.scan_madd_rows(sx, sy)
+    check("scan_madd_rows", [16, steps, lanes, f"K {rule}"], got,
+          cc.scan_madd_rows_plain(sx, sy, rule))
+    if not bool(curve.proj_eq(ProjPoint(*got), ProjPoint(*serial)).all()):
+        raise AssertionError(f"scan_madd_rows [16, {steps}, {lanes}] at K = "
+                             f"{rule} is not the serial scan's points")
+    log(2, f"scan_madd_rows [16, {steps}, {lanes}] at K = {rule} == the "
+        f"serial scan (proj_eq)")
+    del serial, got
+    runs = {1: [], rule: []}
+    for k in (1, rule, rule, 1):
+        runs[k].append(graph_ms(lambda: cc.scan_madd_rows(sx, sy, chunks=k)))
+    plain_ms = cuda_ms(lambda: cc.scan_madd_rows_plain(
+        sx[:, :8].contiguous(), sy[:, :8].contiguous()))
+    work = ec_work(11 * finite(sx, sy), steps * lanes, 32 + 48)
+    recs = {k: {"shape": str([16, steps, lanes]), "chunks": k,
+                "ms": statistics.mean(r), "ms_runs": r, "plain_ms": plain_ms,
+                "plain_shape": str([16, 8, lanes]), **bound(work),
+                "library_ms": None} for k, r in runs.items()}
+    log(2, f"time scan_madd_rows [16, {steps}, {lanes}] on the device: K = 1 "
+        f"{runs[1]} ms, K = {rule} {runs[rule]} ms; plain {plain_ms:.4f} ms "
+        f"at [16, 8, {lanes}]; bound {recs[1]['bound_ms']:.4f} ms by "
+        f"{recs[1]['bound_by']} ({work['ops']} int ops, {work['bytes']} "
+        f"bytes)")
+    entries["scan_madd_rows"].update(
+        recs[rule], call_ms=cuda_ms(lambda: cc.scan_madd_rows(sx, sy)),
+        other_shapes=[recs[1]])
     return entries
 
 
@@ -1321,6 +1365,22 @@ def phase_profile(dev, inputs):
             cfg = dataclasses.replace(base, glv=g)
             show(profile(lambda: msm_device(tpx, tpy, tsl, cfg)),
                  log_n=log_n, **dataclasses.asdict(cfg))
+
+
+def phase_scan_rows_phases(dev, entries):
+    """The device ms a launch of each of scan_madd_rows' three kernels at
+    (16, 256, 4096) and the rule's K, by torch.profiler over 5 calls
+    (benches/scan_rows_benchmark.py, its seeded inputs); into the kernel's
+    entry as `phases_ms`. In phase 6, after every timing."""
+    from tpu_msm_torch.benches import scan_rows_benchmark as srb
+    from tpu_msm_torch.ops import cuda_curve as cc
+
+    gx, gy = srb.inputs(256, 4096, dev)
+    rec = srb.phases_ms(lambda: cc.scan_madd_rows(gx, gy))
+    entries["scan_madd_rows"]["phases_ms"] = rec
+    log(6, f"scan_madd_rows [16, 256, 4096] at K = "
+        f"{entries['scan_madd_rows']['chunks']}, device ms a launch by "
+        f"kernel: {json.dumps(rec)}")
 
 
 def phase_cli():
@@ -2022,6 +2082,7 @@ def main() -> int:
     phase_tensors(dev, inputs, expected)
     lap(14)
     phase_profile(dev, more)
+    phase_scan_rows_phases(dev, entries)
     lap(6)
 
     kernels = [{"name": name, "route": "cuda", "source": source,

@@ -521,11 +521,19 @@ def test_scan_rows_kernel_matches_plain(cuda):
     xy = [interop.affine_points_to_limbs(p) for p in pts]
     gx = _t(np.stack([s[0] for s in xy], axis=1), cuda)
     gy = _t(np.stack([s[1] for s in xy], axis=1), cuda)
+    # The rule's chunks (csrc/ec_kernels.cu: a reduce-then-scan over the
+    # steps) against the plain version at the same K; one chunk, the serial
+    # scan, against the packed scan too.
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    chunks = cuda_curve.scan_rows_chunks(steps, lanes, sms)
     got = cuda_curve.scan_madd_rows(gx, gy)
-    want = cuda_curve.scan_madd_rows_plain(gx, gy)
+    want = cuda_curve.scan_madd_rows_plain(gx, gy, chunks)
+    serial = cuda_curve.scan_madd_rows(gx, gy, chunks=1)
     packed = cuda_curve.scan_madd(*(pack_u16_rows(a.reshape(16, -1))
                                     .reshape(8, steps, lanes).contiguous()
                                     for a in (gx, gy)))
     torch.cuda.synchronize()
     assert all(torch.equal(g, w) for g, w in zip(got, want))
-    assert torch.equal(torch.cat(got), packed)
+    assert all(torch.equal(g, w) for g, w in zip(
+        serial, cuda_curve.scan_madd_rows_plain(gx, gy)))
+    assert torch.equal(torch.cat(serial), packed)

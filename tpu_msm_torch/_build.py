@@ -113,7 +113,7 @@ def load() -> ctypes.CDLL:
                 "tpu_msm_pmadd_group": [vp] * 8 + [i64, vp],
                 "tpu_msm_jac_madd": [vp] * 8 + [i64, vp],
                 "tpu_msm_jac_add": [vp] * 9 + [i64, vp],
-                "tpu_msm_scan_madd_rows": [vp] * 5 + [i32, i32, vp],
+                "tpu_msm_scan_madd_rows": [vp] * 6 + [i32, i32, i32, vp],
                 "tpu_msm_montmul_chain": [vp] * 3 + [i64, i32, i32, i32, vp],
             }
             for name, argtypes in signatures.items():

@@ -274,8 +274,17 @@ def _check_routes(device, lanes: int = CHECK_LANES):
     want = ProjPoint(*(torch.stack(c, dim=1) for c in zip(*prefix)))
     gx, gy = (torch.stack([getattr(pt, f) for pt in steps], dim=1)
               for f in ("x", "y"))
+    # scan_madd_rows at the chunks its wrapper takes (on the card the rule's,
+    # cuda_curve.scan_rows_chunks; 1 on the CPU), against the plain version
+    # at the same chunks; in one chunk it is the serial scan, whose bits the
+    # packed scan has too.
+    chunks = 1
+    if torch.device(device).type == "cuda":
+        chunks = cc.scan_rows_chunks(len(steps), lanes, torch.cuda
+                                     .get_device_properties(device)
+                                     .multi_processor_count)
     rows = cc.scan_madd_rows(gx, gy)
-    check("scan_madd_rows", rows, cc.scan_madd_rows_plain(gx, gy),
+    check("scan_madd_rows", rows, cc.scan_madd_rows_plain(gx, gy, chunks),
           curve.proj_eq, want)
     pgx, pgy = (torch.stack([pack_u16_rows(getattr(pt, f)) for pt in steps],
                             dim=1) for f in ("x", "y"))
@@ -283,7 +292,8 @@ def _check_routes(device, lanes: int = CHECK_LANES):
     check("scan_madd", ys48, cc.scan_madd_plain(pgx, pgy))
     if not bool(curve.proj_eq(ProjPoint(*ys48.split(16)), want).all()):
         failed["scan_madd"].append("curve")
-    if not same(ys48, torch.cat(rows)):  # the packed and row scans agree
+    serial = cc.scan_madd_rows(gx, gy, chunks=1)
+    if not same(ys48, torch.cat(serial)):  # the packed and row scans agree
         failed["scan_madd"].append("rows")
 
     # fold_add over the doubled scan inputs, against sequential proj_add.

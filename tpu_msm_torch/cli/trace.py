@@ -41,11 +41,12 @@ from tpu_msm_torch.ops import pippenger
 from tpu_msm_torch.ops.curve import AffinePoint, ProjPoint
 from tpu_msm_torch.utils.config import MsmConfig
 
-KERNELS = ("scan_madd_kernel", "scan_madd_rows_kernel", "padd_kernel",
-           "padd_group_kernel", "window_tail_kernel", "horner_kernel",
-           "pmadd_kernel", "pmadd_group_kernel", "fold_add_kernel",
-           "fold_add_group_kernel", "jac_madd_kernel", "jac_add_kernel",
-           "digit_hist_kernel")
+KERNELS = ("scan_madd_kernel", "scan_madd_rows_kernel",
+           "scan_madd_rows_totals_kernel", "scan_madd_rows_prefix_kernel",
+           "padd_kernel", "padd_group_kernel", "window_tail_kernel",
+           "horner_kernel", "pmadd_kernel", "pmadd_group_kernel",
+           "fold_add_kernel", "fold_add_group_kernel", "jac_madd_kernel",
+           "jac_add_kernel", "digit_hist_kernel")
 _DEVICE_CATS = {"kernel": None, "gpu_memcpy": "copies", "gpu_memset": "copies"}
 
 ROUTES = {"rule": pippenger.window_sums,

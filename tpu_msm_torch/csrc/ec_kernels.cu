@@ -105,6 +105,25 @@
 // only on the lanes that take it (P == Q), a rare divergent branch, where
 // the TPU kernels computed it on every lane and selected.
 //
+// scan_madd_rows has no window axis to spread over, and its 4096 lanes at
+// (16, 256, 4096) as one thread a lane filled 32 of the 132 SMs with one
+// warp a scheduler, each step's eleven products in series. So it is a
+// reduce-then-scan over K chunks of the step axis (K from
+// cuda_curve.scan_rows_chunks: the least that fills the card), three
+// launches from one C entry:
+// 1. scan_madd_rows_totals_kernel: thread (lane, k) sums chunk k's points,
+//    k = 0 .. K-2, reading them once and storing only the total;
+// 2. scan_madd_rows_prefix_kernel: each lane's K - 2 dependent adds that
+//    turn the totals into running sums, eight lanes an add (proj_add_group)
+//    as fold_add_group_kernel runs its chain: `lanes` chains leave the card
+//    short of warps;
+// 3. scan_madd_rows_kernel: thread (lane, k) starts from the sum of the
+//    chunks before k and runs chunk k, storing every running sum.
+// Chunk 0 is the serial scan's bits, later chunks the same points in other
+// projective coordinates; K = 1 is phase 3 alone, the serial scan. The
+// redesign does the mixed adds twice (phases 1 and 3) for K times the
+// threads.
+//
 // The kernels allocate nothing and do not synchronise. Each C entry launches
 // on the caller's stream and returns cudaGetLastError().
 
@@ -357,18 +376,98 @@ __global__ void __launch_bounds__(kThreads, kGroupMinBlocks)
   store_u16_rows_rank(oz, lanes, lane, acc.z, rank);
 }
 
-// The prefix scan of scan_madd_kernel on unpacked (16, steps, lanes) u16-row
-// affine inputs, with X, Y and Z as three (16, steps, lanes) outputs.
-__global__ void __launch_bounds__(kThreads)
-    scan_madd_rows_kernel(const uint32_t* __restrict__ gx,
-                          const uint32_t* __restrict__ gy,
-                          uint32_t* __restrict__ ox, uint32_t* __restrict__ oy,
-                          uint32_t* __restrict__ oz, int steps, int lanes) {
+// scan_madd_rows: the prefix scan of scan_madd_kernel on unpacked (16, steps,
+// lanes) u16-row affine inputs, with X, Y and Z as three (16, steps, lanes)
+// outputs, as a reduce-then-scan over K chunks of the step axis (see the
+// note at the top). The steps split into chunks of len = ceil(steps / K);
+// chunks 0 .. K-2 are whole, the last may be shorter. `sums` is (K - 1, 48,
+// lanes) u16 rows X || Y || Z: phase 1 writes chunk k's total to slot k,
+// phase 2 turns slot k into the sum of totals 0 .. k, the prefix of chunk
+// k + 1, and phase 3 reads it.
+
+// Slot k of `sums`: its X rows; Y and Z follow at 16 and 32 rows.
+template <typename Word>
+__device__ __forceinline__ Word* sums_slot(Word* sums, int k, int lanes) {
+  return sums + (size_t)k * 48 * lanes;
+}
+
+// Phase 1: thread (lane, k) sums chunk k's points from infinity and stores
+// only the total. blockIdx.y is k, 0 .. K - 2.
+__global__ void __launch_bounds__(kThreads, kScanMinBlocks)
+    scan_madd_rows_totals_kernel(const uint32_t* __restrict__ gx,
+                                 const uint32_t* __restrict__ gy,
+                                 uint32_t* __restrict__ sums, int steps,
+                                 int lanes, int len) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= lanes) return;
   const size_t plane = (size_t)steps * lanes;
+  const int begin = blockIdx.y * len;
   Proj acc = proj_infinity();
-  for (int k = 0; k < steps; ++k) {
+  for (int k = begin; k < begin + len; ++k) {
+    const size_t off = (size_t)k * lanes + lane;
+    acc = proj_madd_complete(acc, load_u16_rows(gx, plane, off),
+                             load_u16_rows(gy, plane, off));
+  }
+  uint32_t* slot = sums_slot(sums, blockIdx.y, lanes);
+  store_u16_rows(slot, lanes, lane, acc.x);
+  store_u16_rows(slot + 16 * lanes, lanes, lane, acc.y);
+  store_u16_rows(slot + 32 * lanes, lanes, lane, acc.z);
+}
+
+// Phase 2: the running sums of the `totals` chunk totals of each lane, in
+// place (slot k becomes slot 0 + ... + slot k), one group of kAddGroup
+// lanes a lane's chain over proj_add_group, loads, prefetch and stores as
+// in fold_add_group_kernel. Each slot is read by the lanes that later
+// overwrite it, one add before. The spare groups of a ragged last block
+// run lane lanes - 1 again and store nothing.
+__global__ void __launch_bounds__(kThreads, kGroupMinBlocks)
+    scan_madd_rows_prefix_kernel(uint32_t* __restrict__ sums, int totals,
+                                 int lanes) {
+  const int g = (blockIdx.x * blockDim.x + threadIdx.x) / kAddGroup;
+  const int rank = threadIdx.x % kAddGroup;
+  const int lane = g < lanes ? g : lanes - 1;
+  const auto words = [&](int k) {
+    const uint32_t* slot = sums_slot(sums, k, lanes);
+    return load_words(slot, slot + 16 * lanes, slot + 32 * lanes, lanes,
+                      lane, rank);
+  };
+  Proj acc = proj_from_group_words(words(0));
+  Words3 w = words(1);
+  for (int k = 1; k < totals; ++k) {
+    const Words3 nw = words(k + 1 < totals ? k + 1 : k);
+    acc = proj_add_group(acc, proj_from_group_words(w), rank, kWarpMask);
+    w = nw;
+    if (g < lanes) {
+      uint32_t* slot = sums_slot(sums, k, lanes);
+      store_u16_rows_rank(slot, lanes, lane, acc.x, rank);
+      store_u16_rows_rank(slot + 16 * lanes, lanes, lane, acc.y, rank);
+      store_u16_rows_rank(slot + 32 * lanes, lanes, lane, acc.z, rank);
+    }
+  }
+}
+
+// Phase 3: thread (lane, k) starts from chunk k's prefix (slot k - 1 of
+// `sums`; infinity for chunk 0), runs the chunk's steps and stores every
+// running sum. blockIdx.y is k, 0 .. K - 1. With K = 1 this is the whole
+// serial scan.
+__global__ void __launch_bounds__(kThreads, kScanMinBlocks)
+    scan_madd_rows_kernel(const uint32_t* __restrict__ gx,
+                          const uint32_t* __restrict__ gy,
+                          const uint32_t* __restrict__ sums,
+                          uint32_t* __restrict__ ox, uint32_t* __restrict__ oy,
+                          uint32_t* __restrict__ oz, int steps, int lanes,
+                          int len) {
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= lanes) return;
+  const size_t plane = (size_t)steps * lanes;
+  const int begin = blockIdx.y * len;
+  const int end = begin + len < steps ? begin + len : steps;
+  Proj acc = proj_infinity();
+  if (blockIdx.y > 0) {
+    const uint32_t* slot = sums_slot(sums, blockIdx.y - 1, lanes);
+    acc = load_proj(slot, slot + 16 * lanes, slot + 32 * lanes, lanes, lane);
+  }
+  for (int k = begin; k < end; ++k) {
     const size_t off = (size_t)k * lanes + lane;
     acc = proj_madd_complete(acc, load_u16_rows(gx, plane, off),
                              load_u16_rows(gy, plane, off));
@@ -546,12 +645,25 @@ int tpu_msm_fold_add_group(const uint32_t* bx, const uint32_t* by,
   return (int)cudaGetLastError();
 }
 
+// chunks: K, from cuda_curve.scan_rows_chunks or the caller, with no empty
+// chunk (ceil(steps / ceil(steps / K)) == K); sums: (K - 1, 48, lanes)
+// scratch. Phases 1 and 2 run only where there is a total to compute and
+// a sum to chain.
 int tpu_msm_scan_madd_rows(const uint32_t* gx, const uint32_t* gy,
-                           uint32_t* ox, uint32_t* oy, uint32_t* oz, int steps,
-                           int lanes, void* stream) {
-  scan_madd_rows_kernel<<<blocks_for(lanes), kThreads, 0,
-                          (cudaStream_t)stream>>>(gx, gy, ox, oy, oz, steps,
-                                                  lanes);
+                           uint32_t* ox, uint32_t* oy, uint32_t* oz,
+                           uint32_t* sums, int steps, int lanes, int chunks,
+                           void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int len = (steps + chunks - 1) / chunks;
+  if (chunks > 1)
+    scan_madd_rows_totals_kernel<<<dim3(blocks_for(lanes), chunks - 1),
+                                   kThreads, 0, s>>>(gx, gy, sums, steps,
+                                                     lanes, len);
+  if (chunks > 2)
+    scan_madd_rows_prefix_kernel<<<group_blocks_for(lanes), kThreads, 0, s>>>(
+        sums, chunks - 1, lanes);
+  scan_madd_rows_kernel<<<dim3(blocks_for(lanes), chunks), kThreads, 0, s>>>(
+      gx, gy, sums, ox, oy, oz, steps, lanes, len);
   return (int)cudaGetLastError();
 }
 

@@ -24,6 +24,8 @@ There is no fallback from one to the other.
   jac_madd        jac_madd_kernel        madd_packed (:367)
   jac_add         jac_add_kernel         add_packed (:385)
   scan_madd_rows  scan_madd_rows_kernel  scan_madd_packed (:565)
+                  after its totals and
+                  prefix kernels
   montmul_chain   montmul_chain_kernel   benches/montmul_benchmark.py `run`
                                          (:89-107, built by _build_kernel)
 
@@ -31,7 +33,9 @@ padd, fold_add and pmadd each launch one of two kernels: one thread an
 element (padd_kernel, fold_add_kernel, pmadd_kernel; for fold_add an
 element is a lane's chain) or eight lanes an element (padd_group_kernel,
 fold_add_group_kernel, pmadd_group_kernel), whichever `kernel_path` gives
-for the width and the card's SM count.
+for the width and the card's SM count. scan_madd_rows launches its three
+kernels (chunk totals, their running sums, each chunk's scan) at the K
+chunks of the step axis that `scan_rows_chunks` gives, or the caller.
 
 The fused MSM path runs scan_madd (one launch per group of windows), padd,
 fold_add, window_tail and horner; the per-window path runs pmadd (one
@@ -57,6 +61,7 @@ Operands are int32 tensors that carry u32 bit patterns.
 from __future__ import annotations
 
 import functools
+import math
 
 import torch
 
@@ -458,40 +463,113 @@ jac_add.launches = 0
 
 # --------------------------------------------------------------------------
 # scan_madd_rows: the prefix scan of scan_madd on unpacked u16 rows, with
-# the three coordinates as three outputs.
+# the three coordinates as three outputs, as a reduce-then-scan over K
+# chunks of the step axis (csrc/ec_kernels.cu).
 # --------------------------------------------------------------------------
 
-def scan_madd_rows_plain(gx: torch.Tensor, gy: torch.Tensor):
+# The chunks that fill the card: each chunk of each lane is one thread of
+# phases 1 and 3, in blocks of 128 threads, SCAN_ROWS_BLOCKS_PER_SM of them
+# an SM (the kernels' __launch_bounds__).
+SCAN_ROWS_BLOCKS_PER_SM = 4
+# More chunks shorten phases 1 and 3 (2·steps/K mixed adds in series) but
+# lengthen phase 2's chain (K - 2 adds), so the time is least near K =
+# sqrt(2·steps·t_madd / t_add): the sweep of benches/scan_rows_benchmark.py
+# on the H100 put the cap at K^2 <= SCAN_ROWS_BALANCE·steps (PERF.md §6).
+SCAN_ROWS_BALANCE = 4
+
+
+def scan_rows_chunking(steps: int, chunks: int):
+    """(K, length): `chunks` chunks of ceil(steps / chunks) steps, with the
+    empty ones dropped, so that every chunk holds a step and only the last
+    may be shorter."""
+    if steps < 1 or chunks < 1:
+        raise ValueError(f"the scan needs steps >= 1 and chunks >= 1, got "
+                         f"{steps} and {chunks}")
+    length = -(-steps // chunks)
+    return -(-steps // length), length
+
+
+def scan_rows_chunks(steps: int, lanes: int, sm_count: int) -> int:
+    """K for scan_madd_rows at (16, steps, lanes) on `sm_count` SMs: 1
+    where the lanes alone fill the card (one thread a lane), else the
+    least K whose K x lanes threads fill it, capped at
+    isqrt(SCAN_ROWS_BALANCE·steps) and at `steps`; chunks of equal
+    length."""
+    fill = SCAN_ROWS_BLOCKS_PER_SM * 128 * sm_count
+    if lanes >= fill:
+        return 1
+    k = min(-(-fill // lanes), math.isqrt(SCAN_ROWS_BALANCE * steps), steps)
+    return scan_rows_chunking(steps, k)[0]
+
+
+def scan_madd_rows_plain(gx: torch.Tensor, gy: torch.Tensor, chunks=1):
     """gx, gy: (16, steps, lanes) affine u16 rows, (0, 0) = infinity.
     Returns three (16, steps, lanes) int32 tensors X, Y, Z: column (k, l)
-    is the sum of points 0..k of lane l, starting from (0 : 1 : 0)
-    (`_scan_madd_kernel`, one step per TPU grid step)."""
+    is the sum of points 0..k of lane l (`_scan_madd_kernel`, one step per
+    TPU grid step). chunks = 1 adds them in order from (0 : 1 : 0); K > 1
+    (scan_rows_chunking) runs the kernel's three phases: the totals of
+    chunks 0 .. K-2, their running sums, and each chunk's scan from the
+    sum of the chunks before it. Chunk 0 is then chunks = 1's bits, the
+    rest the same points in other projective coordinates."""
     scan_madd_rows_plain.calls += 1
+    _, steps, lanes = gx.shape
+    k, length = scan_rows_chunking(steps, chunks)
     qx, qy = gx.to(_I64), gy.to(_I64)
-    acc = curve.proj_infinity((gx.shape[2],), gx.device, _I64)
-    steps = []
-    for k in range(gx.shape[1]):
-        acc = curve.proj_madd(acc, AffinePoint(qx[:, k], qy[:, k]))
-        steps.append(acc)
-    return tuple(torch.stack(c, dim=1).to(_I32) for c in zip(*steps))
+    pad = k * length - steps  # (0, 0) sentinels leave a sum unchanged
+    qx, qy = (torch.cat([q, q.new_zeros(16, pad, lanes)], dim=1)
+              for q in (qx, qy))
+
+    def by_chunk(q, n):  # chunks 0..n-1, chunk-major lanes: (16, length, n·L)
+        return (q[:, :n * length].reshape(16, n, length, lanes)
+                .transpose(1, 2).reshape(16, length, n * lanes))
+
+    def run(acc, n, keep):
+        xs, ys = by_chunk(qx, n), by_chunk(qy, n)
+        sums = []
+        for j in range(length):
+            acc = curve.proj_madd(acc, AffinePoint(xs[:, j], ys[:, j]))
+            if keep:
+                sums.append(acc)
+        return acc, sums
+
+    start = curve.proj_infinity((lanes,), gx.device, _I64)
+    if k > 1:
+        totals, _ = run(curve.proj_infinity(((k - 1) * lanes,), gx.device,
+                                            _I64), k - 1, False)
+        prefix = [ProjPoint(*(c[:, :lanes] for c in totals))]
+        for i in range(1, k - 1):
+            prefix.append(curve.proj_add(prefix[-1], ProjPoint(
+                *(c[:, i * lanes:(i + 1) * lanes] for c in totals))))
+        start = ProjPoint(*(torch.cat(c, dim=1)
+                            for c in zip(start, *prefix)))
+    _, sums = run(start, k, True)
+    return tuple(torch.stack(c, dim=1).reshape(16, length, k, lanes)
+                 .transpose(1, 2).reshape(16, k * length, lanes)[:, :steps]
+                 .to(_I32).contiguous() for c in zip(*sums))
 
 
 scan_madd_rows_plain.calls = 0
 
 
-def scan_madd_rows(gx: torch.Tensor, gy: torch.Tensor):
-    """Kernel wrapper of scan_madd_rows_plain (same arguments and result)."""
+def scan_madd_rows(gx: torch.Tensor, gy: torch.Tensor, chunks=None):
+    """Kernel wrapper of scan_madd_rows_plain (same arguments and result):
+    one C entry, three launches, at `chunks` chunks; None takes
+    scan_rows_chunks on the card and 1 on the CPU."""
     if not _build.on_cuda(gx, gy):
-        return scan_madd_rows_plain(gx, gy)
+        return scan_madd_rows_plain(gx, gy, 1 if chunks is None else chunks)
     if gx.dim() != 3 or gx.shape[0] != 16 or gy.shape != gx.shape:
         raise ValueError(f"scan inputs must both be (16, steps, lanes), got "
                          f"{tuple(gx.shape)} and {tuple(gy.shape)}")
     _, steps, lanes = gx.shape
     if steps < 1 or lanes < 1:
         raise ValueError("scan needs at least one step and one lane")
+    if chunks is None:
+        chunks = scan_rows_chunks(steps, lanes, _sm_count(gx.device))
+    k, _ = scan_rows_chunking(steps, chunks)
     out = tuple(torch.empty_like(gx) for _ in range(3))
-    _build.launch("tpu_msm_scan_madd_rows", gx.device, gx, gy, *out, steps,
-                  lanes)
+    sums = torch.empty((k - 1, 48, lanes), dtype=_I32, device=gx.device)
+    _build.launch("tpu_msm_scan_madd_rows", gx.device, gx, gy, *out, sums,
+                  steps, lanes, k)
     scan_madd_rows.launches += 1
     return out
 
