@@ -43,7 +43,22 @@ C++ engine's result exactly:
   * the golden vectors (phase 13): every MSM case of
     tests/vectors/bn254_golden.json through `msm` on the card;
   * limb tensors on the card (phase 14): `msm` and `msm_best` on (16, 2^20)
-    int32 CUDA tensors, with and without the zero filter.
+    int32 CUDA tensors, with and without the zero filter;
+  * the sharded and multi-process MSM (phase 15): `parallel.sharded.
+    msm_sharded` at 2^20 over 1, 2 and 4 shards on cuda:0 in both
+    collectives (D = 1 byte-identical to `msm_device`), each timed beside
+    `msm_device`, every `padd`, `padd_group` and `horner` launch of those
+    runs held against its plain version at its shape (`sharded_shapes`,
+    `sharded_launches` in the JSON line); two processes of
+    `python -m tpu_msm_torch.parallel.distributed` over gloo, both on
+    cuda:0, at 2^21 in both collectives, their digests equal to each other
+    and to in-process `msm_sharded` over two shards; one process over NCCL
+    at world size 1, its digest that of `msm_device`'s bytes; the CLI's
+    `20 1 sharded 1`;
+  * the C ABI (phase 16): `libtpu_msm_torch_embed.so` and its smoke host
+    program built with g++, the program fed the 2^20 inputs as wire bytes, its 64 bytes
+    equal to the native engine's, its calls timed beside `msm_best_wire`
+    and `msm_best` in Python.
 
 Phase 5 also runs the CLI's `22 1 stream 1` and `20 1 hybrid 1`, each of
 which holds its result against the native engine.
@@ -1710,11 +1725,12 @@ class RouteSpy:
             kernel = f"{name}_group" if group else name
             shape = [*args[0].shape] + [a for a in args[1:]
                                         if not isinstance(a, torch.Tensor)]
-            rec = route.calls.setdefault((kernel, str(shape)), {
-                "launches": 0, "args": tuple(
+            key = (kernel, str(shape))
+            if key not in route.calls:  # copy the first call's inputs only
+                route.calls[key] = {"launches": 0, "args": tuple(
                     a.clone() if isinstance(a, torch.Tensor) else a
-                    for a in args)})
-            rec["launches"] += launched
+                    for a in args)}
+            route.calls[key]["launches"] += launched
             return out
 
     def __enter__(self):
@@ -1986,6 +2002,248 @@ def phase_tensors(dev, inputs, expected):
         "native engine, with and without the zero filter")
 
 
+# --------------------------------------------------------------------------
+# The sharded and multi-process MSM, and the C ABI.
+# --------------------------------------------------------------------------
+
+SHARDS = (1, 2, 4)
+# The multi-process runs' size: 2^20 points a rank over two ranks.
+DIST_LOG = 21
+# The sharded path's kernels whose every launch phase 15 records by shape.
+TREE_KERNELS = ("padd", "padd_group", "horner")
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def start_ranks(world, backend, collective, log_size, repeats=1):
+    """`world` processes of `python -m tpu_msm_torch.parallel.distributed`
+    on cuda:0 over `backend`, started together; finish_ranks collects."""
+    init = f"tcp://127.0.0.1:{_free_port()}"
+    return [subprocess.Popen(
+        [sys.executable, "-m", "tpu_msm_torch.parallel.distributed",
+         "--init-method", init, "--world-size", str(world), "--rank", str(r),
+         "--backend", backend, "--device", "cuda:0", "--log-size",
+         str(log_size), "--collective", collective, "--repeats",
+         str(repeats)], cwd=Path(__file__).resolve().parent,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+
+
+def finish_ranks(procs, what, timeout=300):
+    """Each rank's (digest, [ms a call]); raises unless every rank exited 0
+    and the digests are equal."""
+    try:
+        outs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    got = []
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        m = re.search(r"ms=\[([^\]]*)\] result_sha256=([0-9a-f]{64})", out)
+        if p.returncode != 0 or not m:
+            raise AssertionError(f"{what} rank {r}: rc {p.returncode}\n"
+                                 f"{out[-3000:]}")
+        got.append((m[2], [float(t) for t in m[1].split(",")]))
+    if len({d for d, _ in got}) != 1:
+        raise AssertionError(f"{what}: the ranks' digests differ: {got}")
+    return got
+
+
+def phase_sharded(dev, inputs, expected, entries):
+    """The sharded MSM: (a) `msm_sharded` at 2^20 over D = 1, 2, 4 shards
+    on cuda:0 in both collectives, each equal to the native engine, D = 1
+    byte-identical to msm_device, each timed in turns with msm_device by
+    CUDA events, the counters set to 0 before each run and read after it; (e)
+    every padd, padd_group and horner launch of those runs recorded by
+    shape and held against its plain version on that call's inputs; (b)
+    two processes of `tpu_msm_torch.parallel.distributed` over gloo, both
+    on cuda:0, at 2^21 (2^20 points a rank), in both collectives, their
+    digests equal to each other and to in-process msm_sharded over two
+    shards, whose result equals the native engine's; (c) one process over
+    NCCL at world size 1, its digest that of msm_device's bytes; (d) the
+    CLI's `20 1 sharded 1`, which holds its result against the native
+    engine."""
+    import torch
+
+    import tpu_msm_torch
+    from tpu_msm_torch.bindings import native
+    from tpu_msm_torch.parallel import distributed, sharded
+    from tpu_msm_torch.utils import interop, preprocess
+
+    px, py, sl = inputs[20]
+    d = interop.limbs_to_device(px, py, sl, dev)
+    cfg = tpu_msm_torch.select_config(1 << 20, dev)
+    ref = tpu_msm_torch.msm_device(*d, cfg)
+    spy = RouteSpy()
+    spy.targets = [(m, k) for m, k in spy.targets if k in ("padd", "horner")]
+    runs, per_run = {}, {}
+    for shards in SHARDS:
+        for coll in sharded.COLLECTIVES:
+            runs[f"{coll} D={shards}"] = functools.partial(
+                sharded.msm_sharded, d[:2], d[2], devices=[dev] * shards,
+                collective=coll)
+    with spy:  # the spy copies each call's inputs: no timing inside it
+        for name, run in runs.items():
+            reset_counts()
+            res = run()
+            expected_is(affine(res), expected[20], f"msm_sharded {name}")
+            launches = read_counts(15, MAIN_KERNELS)
+            if name.endswith(" D=1") and not all(
+                    torch.equal(a, b) for a, b in zip(res, ref)):
+                raise AssertionError(f"msm_sharded {name}: bytes differ "
+                                     f"from msm_device's")
+            per_run[name] = {k: launches[k] - launches.get(
+                SHARED_COUNTS.get(k), 0) for k in TREE_KERNELS}
+            log(15, f"msm_sharded n=2^20 {name} == native engine"
+                + (", bytes == msm_device's" if name.endswith(" D=1")
+                   else "") + f"; launches {per_run[name]}")
+    for name, run in runs.items():  # each in turns with msm_device
+        device_ms = cuda_ms(lambda: tpu_msm_torch.msm_device(*d, cfg))
+        ms = cuda_ms(run)
+        log(15, f"time msm_sharded n=2^20 {name}: {ms:.4f} ms against "
+            f"msm_device {device_ms:.4f} just before it "
+            f"({ms / device_ms:.3f}x)")
+    shapes = check_route(15, entries, spy.calls)
+    for kernel in TREE_KERNELS:
+        entries[kernel]["sharded_shapes"] = shapes.get(kernel, [])
+        entries[kernel]["sharded_launches"] = {
+            name: counts[kernel] for name, counts in per_run.items()}
+    log(15, f"every padd and horner launch of the sharded runs == its plain "
+        f"version at each shape: {json.dumps({k: [[r['shape'], r['launches']] for r in v] for k, v in shapes.items()})}")
+
+    # (b) two gloo ranks on one card, timed alone first.
+    t0 = time.perf_counter()
+    gloo = {"gather_tree": finish_ranks(start_ranks(
+        2, "gloo", "gather_tree", DIST_LOG, repeats=3), "gloo gather_tree")}
+    log(15, f"2 gloo ranks on cuda:0, 2^{DIST_LOG} (2^20 a rank), "
+        f"gather_tree: digests equal; ms a call by rank "
+        f"{[t for _, t in gloo['gather_tree']]} (the first call warms up); "
+        f"{time.perf_counter() - t0:.1f} s with the processes' start")
+    # Then together: the other collective, NCCL at world size 1, the CLI.
+    t0 = time.perf_counter()
+    pending = start_ranks(2, "gloo", "ppermute_tree", DIST_LOG)
+    nccl = start_ranks(1, "nccl", "gather_tree", 20, repeats=3)
+    with tempfile.TemporaryDirectory() as cache:
+        path = Path(cache) / "msm_vecs" / "msm_20x1.npz"
+        path.parent.mkdir(parents=True)
+        [inst] = preprocess.generate_msm_instances(20, 1)
+        np.savez(path, px0=inst.px, py0=inst.py, s0=inst.scalars,
+                 num=np.array([1]))
+        cli = subprocess.Popen(
+            [sys.executable, "-m", "tpu_msm_torch.cli.profiler", "20", "1",
+             "sharded", "1"], cwd=Path(__file__).resolve().parent,
+            env=dict(os.environ, TPU_MSM_CACHE_DIR=cache),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        wx, wy, ws = distributed.workload(DIST_LOG)
+        want21 = native.msm(wx, wy, ws)
+        dw = interop.limbs_to_device(wx, wy, ws, dev)
+        for coll in sharded.COLLECTIVES:
+            res = sharded.msm_sharded(dw[:2], dw[2], devices=[dev] * 2,
+                                      collective=coll)
+            expected_is(affine(res), want21, f"msm_sharded 2^{DIST_LOG} D=2")
+            if coll not in gloo:
+                gloo[coll] = finish_ranks(pending, f"gloo {coll}")
+            if gloo[coll][0][0] != distributed.digest(*res):
+                raise AssertionError(f"gloo {coll}: the ranks' digest "
+                                     f"differs from msm_sharded D=2's")
+            log(15, f"2 gloo ranks, {coll}: digest {gloo[coll][0][0][:16]}... "
+                f"== in-process msm_sharded D=2's; its result == native "
+                f"engine at 2^{DIST_LOG}")
+        [(nccl_digest, nccl_ms)] = finish_ranks(nccl, "nccl")
+        nx, ny, ns = distributed.workload(20)
+        single = tpu_msm_torch.msm_device(
+            *interop.limbs_to_device(nx, ny, ns, dev), cfg)
+        if nccl_digest != distributed.digest(*single):
+            raise AssertionError("nccl world size 1: digest differs from "
+                                 "msm_device's bytes")
+        log(15, f"1 NCCL rank at 2^20: digest == msm_device's bytes; "
+            f"{nccl_ms} ms a call (the first warms up)")
+        out = cli.communicate(timeout=600)[0]
+    lines = [ln.split(" INFO ")[-1] for ln in out.splitlines()
+             if "==" in ln or "Execution" in ln]
+    if cli.returncode != 0 or "instance 0: sharded == cpu" not in out:
+        raise AssertionError(f"profiler 20 1 sharded 1: rc {cli.returncode}"
+                             f"\n{out[-3000:]}")
+    for line in lines:
+        log(15, f"20 1 sharded 1: {line}")
+    log(15, f"the other collective, NCCL and the CLI together in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {"gloo_ms": gloo["gather_tree"]}
+
+
+def phase_embed(dev, inputs, expected):
+    """The C ABI: builds libtpu_msm_torch_embed.so and its smoke host
+    program, feeds the program the 2^20 inputs as wire bytes (a file),
+    requires the 64 bytes it returns to be the native engine's result, and
+    times
+    tpu_msm_best through the C ABI (three calls after the first, in the
+    program) beside msm_best_wire on the same bytes (and its wire
+    conversion, from_h2c_bytes, alone) and msm_best on the limb arrays,
+    in Python."""
+    from tpu_msm_torch import _build, msm_best
+    from tpu_msm_torch.benches import dispatch_benchmark as db
+    from tpu_msm_torch.bindings import embed
+    from tpu_msm_torch.utils import interop
+
+    res = _build.build_embed()
+    log(16, f"C ABI build: {'compiled' if res['built'] else 'up to date'} "
+        f"in {res['seconds']:.1f} s -> {res['lib']}, {res['host']}")
+    px, py, sl = inputs[20]
+    n = px.shape[1]
+    wire = (interop.to_h2c_bytes(sl).tobytes(), np.stack(
+        [interop.to_h2c_bytes(px), interop.to_h2c_bytes(py)], axis=1)
+        .tobytes())  # scalars, then each point's x then y
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "wire.bin"
+        path.write_bytes(wire[0] + wire[1])
+        t0 = time.perf_counter()
+        proc = subprocess.run([res["host"], str(n), str(path), "3"],
+                              capture_output=True, text=True, timeout=600,
+                              env=_build.embed_env())
+        dt = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"test_embed: rc {proc.returncode}\n"
+                             f"{proc.stderr[-3000:]}")
+    out = bytes.fromhex(proc.stdout.strip())
+    got = (int.from_bytes(out[:32], "little"),
+           int.from_bytes(out[32:], "little"))
+    expected_is(got, expected[20], "tpu_msm_best through the C ABI")
+    c_ms = [float(t) for t in re.search(r"tpu_msm_best ms:([ 0-9.]*)",
+                                        proc.stderr)[1].split()]
+    def convert():
+        pxy = np.frombuffer(wire[1], np.uint8).reshape(n, 2, 32)
+        return [interop.from_h2c_bytes(a) for a in (
+            np.frombuffer(wire[0], np.uint8).reshape(n, 32), pxy[:, 0],
+            pxy[:, 1])]
+
+    convert_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        convert()
+        convert_ms.append((time.perf_counter() - t0) * 1e3)
+    wire_ms = [db.host_seconds(lambda: expected_is(
+        embed.msm_best_wire(*wire, device=dev), out, "msm_best_wire")) * 1e3
+        for _ in range(3)]
+    py_ms = [db.host_seconds(lambda: expected_is(
+        msm_best(sl, (px, py), device=dev), expected[20], "msm_best")) * 1e3
+        for _ in range(3)]
+    log(16, f"tpu_msm_best n=2^20 through the C ABI == native engine; "
+        f"{c_ms} ms a call (the host program's clock); in Python "
+        f"msm_best_wire on the same bytes {[round(t, 3) for t in wire_ms]} "
+        f"ms, from_h2c_bytes of its three arrays alone "
+        f"{[round(t, 3) for t in convert_ms]} ms, msm_best on the limb "
+        f"arrays {[round(t, 3) for t in py_ms]} ms; the host program's "
+        f"process {dt:.1f} s")
+    return {"c_ms": c_ms, "wire_ms": wire_ms, "convert_ms": convert_ms,
+            "py_ms": py_ms}
+
+
 EC = "tpu_msm_torch/csrc/ec_kernels.cu"
 PC = "tpu_msm/ops/pallas_curve.py"
 # name: (source, the TPU kernels it replaces, the path its launches count)
@@ -2081,6 +2339,10 @@ def main() -> int:
     lap(13)
     phase_tensors(dev, inputs, expected)
     lap(14)
+    phase_sharded(dev, inputs, expected, entries)
+    lap(15)
+    phase_embed(dev, inputs, expected)
+    lap(16)
     phase_profile(dev, more)
     phase_scan_rows_phases(dev, entries)
     lap(6)

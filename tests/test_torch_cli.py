@@ -118,15 +118,18 @@ def cpu_card(monkeypatch, cache, small_inst):
     from tpu_msm_torch.utils import config
 
     monkeypatch.setattr(profiler, "_card", lambda: torch.device("cpu"))
+    monkeypatch.setattr(profiler, "sharded_devices",
+                        lambda: [torch.device("cpu")] * 2)
     monkeypatch.setattr(preprocess, "get_or_create_msm_instances",
                         lambda log_n, num: [small_inst])
     monkeypatch.setattr(config, "select_config", lambda n, device=None: SMALL)
 
 
-@pytest.mark.parametrize("mode", ["stream", "hybrid"])
+@pytest.mark.parametrize("mode", ["stream", "hybrid", "sharded"])
 def test_stream_and_hybrid_modes_check_against_native(cpu_card, mode,
                                                       monkeypatch, caplog):
-    """The two modes hold their warm-up result against the native engine:
+    """The modes (sharded on two CPU shards here) hold their warm-up result
+    against the native engine:
     rc 0 and the line that says so where they agree, rc 1 where the engine
     gives another point."""
     caplog.set_level("INFO")
@@ -138,9 +141,11 @@ def test_stream_and_hybrid_modes_check_against_native(cpu_card, mode,
 
 
 def test_card_modes_refuse_to_run_without_a_card(cache, no_card):
-    for mode in ("gpu", "best", "check", "stream", "hybrid"):
+    for mode in ("gpu", "best", "check", "stream", "hybrid", "sharded"):
         with pytest.raises(RuntimeError, match="CUDA device"):
             profiler.main(["6", "1", mode, "1"])
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        profiler.sharded_devices()
     with pytest.raises(RuntimeError, match="CUDA device"):
         profiler.main(["--check-kernels"])
     with pytest.raises(RuntimeError, match="CUDA device"):
@@ -169,7 +174,11 @@ def test_kernel_check_routes_on_cpu():
 def test_import_leaves_jax_out():
     code = ("import sys, tpu_msm_torch.cli.profiler, tpu_msm_torch.cli.trace, "
             "tpu_msm_torch.ops.streaming, tpu_msm_torch.hybrid, "
-            "tpu_msm_torch.utils.preprocess, tpu_msm_torch.utils.oracle; "
+            "tpu_msm_torch.utils.preprocess, tpu_msm_torch.utils.oracle, "
+            "tpu_msm_torch.parallel.sharded, "
+            "tpu_msm_torch.parallel.collectives, "
+            "tpu_msm_torch.parallel.distributed, "
+            "tpu_msm_torch.bindings.embed; "
             "assert 'jax' not in sys.modules, 'jax imported'")
     subprocess.run([sys.executable, "-c", code], check=True,
                    cwd=Path(tpu_msm_torch.__file__).parents[1], timeout=120)

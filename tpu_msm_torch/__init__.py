@@ -10,6 +10,11 @@ reference. Same entry points, same wire format, same results:
     ops.streaming.msm_streamed(...)          the chunked pipeline (n above
                                              STREAM_THRESHOLD)
     hybrid.msm_hybrid(...)                   card + native CPU engine split
+    parallel.sharded.msm_sharded(...)        D shards in one process
+    parallel.distributed.msm_distributed(...)  one shard a process
+                                             (torch.distributed)
+    bindings.embed.msm_best_wire(...)        wire bytes in, 64 bytes out;
+                                             the C ABI's backend
 
 Inputs are Python lists (int scalars, (x, y) int points with None for
 infinity) or the JAX package's (16, N) limb arrays: Montgomery-form affine

@@ -1,17 +1,26 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's CUDA kernels, and build its C ABI.
 
 `nvcc` compiles every `csrc/*.cu` for sm_90a, one process per source, all
 started together, and links the objects into one shared library with a
 plain C interface, `build/tpu_msm_torch/libtpu_msm_torch_kernels.so` under
 the repository root (git-ignored), at first use and again whenever a source
-is newer than the library. ctypes loads it. Nothing here runs at import.
+is newer than the library. ctypes loads it.
+
+`build_embed` compiles the C ABI (`csrc/tpu_msm_torch_embed.cpp`, which
+embeds CPython) with g++ into `libtpu_msm_torch_embed.so` beside it, and
+its smoke host program (`csrc/test_embed_main.c`) with gcc into
+`test_embed`, with `python3-config`'s flags, at first use and again
+whenever a source is newer. Nothing here runs at import.
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
+import shutil
+import site
 import subprocess
+import sys
 import tempfile
 import threading
 import time
@@ -24,6 +33,8 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "tpu_msm_torch"
 LIB_PATH = BUILD_DIR / "libtpu_msm_torch_kernels.so"
 LOG_PATH = BUILD_DIR / "build.log"
+EMBED_LIB = BUILD_DIR / "libtpu_msm_torch_embed.so"
+EMBED_HOST = BUILD_DIR / "test_embed"
 
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMPILE_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -34,6 +45,10 @@ _lock = threading.Lock()
 
 
 class KernelBuildError(RuntimeError):
+    pass
+
+
+class EmbedBuildError(RuntimeError):
     pass
 
 
@@ -153,3 +168,75 @@ def launch(name: str, device, *args) -> None:
                   for a in args), stream)
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
+
+
+def _python_config() -> str:
+    """The python3-config of this interpreter's version: beside the
+    interpreter, else on PATH."""
+    ver = f"python{sys.version_info.major}.{sys.version_info.minor}-config"
+    here = Path(sys.executable).parent
+    for cand in (here / ver, here / "python3-config"):
+        if cand.exists():
+            return str(cand)
+    found = shutil.which(ver) or shutil.which("python3-config")
+    if found is None:
+        raise EmbedBuildError("no python3-config found: the C ABI embeds "
+                              "CPython and needs its headers and library")
+    return found
+
+
+def _config_flags(cfg: str, *args: str) -> list:
+    proc = subprocess.run([cfg, *args], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise EmbedBuildError(f"{cfg} {' '.join(args)} failed:\n"
+                              f"{proc.stderr}")
+    return proc.stdout.split()
+
+
+def build_embed() -> dict:
+    """Build the C ABI library and its smoke host program if either is
+    missing or older than its sources. Returns {"built": bool, "seconds": float, "lib":
+    path, "host": path}."""
+    lib_src = _CSRC / "tpu_msm_torch_embed.cpp"
+    host_src = _CSRC / "test_embed_main.c"
+    newest = max(lib_src.stat().st_mtime, host_src.stat().st_mtime)
+    if all(p.exists() and p.stat().st_mtime >= newest
+           for p in (EMBED_LIB, EMBED_HOST)):
+        return {"built": False, "seconds": 0.0, "lib": str(EMBED_LIB),
+                "host": str(EMBED_HOST)}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cfg = _python_config()
+    includes = _config_flags(cfg, "--includes")
+    ldflags = _config_flags(cfg, "--embed", "--ldflags")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        lib = Path(tmp) / EMBED_LIB.name
+        host = Path(tmp) / EMBED_HOST.name
+        for cmd in (
+                ["g++", "-O2", "-fPIC", "-std=c++17", "-Wall", "-Wextra",
+                 *includes, "-shared", "-o", str(lib), str(lib_src),
+                 *ldflags],
+                ["gcc", "-O2", "-Wall", "-o", str(host), str(host_src),
+                 f"-L{tmp}", "-ltpu_msm_torch_embed", "-Wl,-rpath,$ORIGIN",
+                 *ldflags]):
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise EmbedBuildError(f"{cmd[0]} failed ({proc.returncode}):"
+                                      f"\n{proc.stdout}{proc.stderr}")
+        os.replace(lib, EMBED_LIB)
+        os.replace(host, EMBED_HOST)
+    return {"built": True, "seconds": time.perf_counter() - t0,
+            "lib": str(EMBED_LIB), "host": str(EMBED_HOST)}
+
+
+def embed_env(env=None) -> dict:
+    """`env` (default os.environ) for a process that loads the C ABI: the
+    repository root and this interpreter's site-packages on PYTHONPATH, so
+    the embedded interpreter imports this checkout's tpu_msm_torch, torch
+    and numpy."""
+    env = dict(os.environ if env is None else env)
+    paths = [str(BUILD_DIR.parents[1]), *site.getsitepackages()]
+    if env.get("PYTHONPATH"):
+        paths.append(env["PYTHONPATH"])
+    env["PYTHONPATH"] = os.pathsep.join(paths)
+    return env

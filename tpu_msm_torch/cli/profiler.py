@@ -10,6 +10,7 @@ Usage (positionals as the reference's
     python -m tpu_msm_torch.cli.profiler 16 2 best 2 4   # concurrency stress
     python -m tpu_msm_torch.cli.profiler 22 1 stream 1
     python -m tpu_msm_torch.cli.profiler 20 1 hybrid 1
+    python -m tpu_msm_torch.cli.profiler 20 1 sharded 1
     python -m tpu_msm_torch.cli.profiler --check-kernels
 
 Run modes:
@@ -24,10 +25,12 @@ Run modes:
            JAX package) on inputs placed on the card once
     hybrid the card + native CPU split (`hybrid.msm_hybrid`, the
            reference's "gpu_cpu"), on host inputs
-    stream and hybrid hold their warm-up result on the first instance
-    against the native engine (outside the timing); exit 1 unless they agree
+    sharded `parallel.sharded.msm_sharded`, one shard on each visible CUDA
+           device, on inputs placed on the first card once
+    stream, hybrid and sharded hold their warm-up result on the first
+    instance against the native engine (outside the timing); exit 1 unless
+    they agree
 
-The JAX package's `sharded` mode waits for the module it drives (ROADMAP).
 `parallel_runs > 1` (gpu | best | cpu) splits each instance into that many
 chunks, runs each on its own thread after a random 0-50 ms delay, and
 requires the EC sum of the chunk results to equal the single-threaded
@@ -38,8 +41,9 @@ PyTorch version bit for bit, and against the curve-level ops by projective
 equality, on the card at 1024 lanes with edge lanes (equal points,
 inverses, infinities), and logs one `kernel <name> OK|MISMATCH` line each.
 
-The gpu, best, check, stream and hybrid modes and `--check-kernels` need a
-CUDA device and raise without one: they never run on the CPU instead. Inputs come from
+The gpu, best, check, stream, hybrid and sharded modes and
+`--check-kernels` need a CUDA device and raise without one: they never run
+on the CPU instead. Inputs come from
 `tpu_msm_torch.utils.preprocess` (cached under TPU_MSM_CACHE_DIR, same
 files as the JAX package's). Timings are logged; -v adds per-run lines.
 """
@@ -59,7 +63,7 @@ import torch
 
 log = logging.getLogger("tpu_msm_torch.profiler")
 
-MODES = ("gpu", "best", "cpu", "check", "stream", "hybrid")
+MODES = ("gpu", "best", "cpu", "check", "stream", "hybrid", "sharded")
 # The chunk of the stream mode, as in the JAX package's `_run_stream`.
 STREAM_CHUNK_LOG = 20
 
@@ -136,6 +140,26 @@ def run_hybrid(inst, cfg, device):
     from tpu_msm_torch.hybrid import msm_hybrid
 
     return msm_hybrid(inst.px, inst.py, inst.scalars, cfg, device=device)
+
+
+def sharded_devices():
+    """The sharded mode's devices: every visible CUDA device."""
+    from tpu_msm_torch.parallel import sharded
+
+    return sharded.default_devices()
+
+
+def run_sharded(inst, cfg, devices):
+    """msm_sharded on `inst` (numpy arrays, or tensors) over `devices`, each
+    shard with `cfg`; returns the (16, 1) projective result after the
+    devices have finished."""
+    from tpu_msm_torch.parallel import sharded
+
+    res = sharded.msm_sharded((inst.px, inst.py), inst.scalars,
+                              devices=devices, cfg=cfg)
+    for dev in set(devices):
+        _sync(dev)
+    return res
 
 
 def run_check(inst, cfg, device, dev_inst=None):
@@ -414,10 +438,15 @@ def main(argv=None):
              args.num_instances, args.log_instance_size)
     instances = preprocess.get_or_create_msm_instances(
         args.log_instance_size, args.num_instances)
-    # gpu, check and stream place the arrays on the card once, before
-    # timing, so that the runs time the card and not the host-to-device copy.
+    devices = sharded_devices() if mode == "sharded" else None
+    # gpu, check, stream and sharded place the arrays on the (first) card
+    # once, before timing, so that the runs time the card and not the
+    # host-to-device copy.
+    if devices is not None:
+        device = devices[0]
     on_card = ([_on_device(i, device) for i in instances]
-               if mode in ("gpu", "check", "stream") else instances)
+               if mode in ("gpu", "check", "stream", "sharded")
+               else instances)
 
     expected = None
     if args.parallel_runs > 1:
@@ -429,10 +458,14 @@ def main(argv=None):
         run_gpu(on_card[0], cfg, device)  # warm-up, excluded from timing
     elif mode == "best":
         run_best(instances[0], device)
-    elif mode in ("stream", "hybrid"):
+    elif mode in ("stream", "hybrid", "sharded"):
         # The warm-up result against the native engine, outside the timing.
-        got = (_affine(run_stream(on_card[0], cfg, device))
-               if mode == "stream" else run_hybrid(instances[0], cfg, device))
+        if mode == "stream":
+            got = _affine(run_stream(on_card[0], cfg, device))
+        elif mode == "hybrid":
+            got = run_hybrid(instances[0], cfg, device)
+        else:
+            got = _affine(run_sharded(on_card[0], cfg, devices))
         want = run_cpu(instances[0])
         if got != want:
             log.error("MISMATCH at instance 0: %s=%s cpu=%s", mode, got, want)
@@ -460,6 +493,8 @@ def main(argv=None):
                 run_stream(on_card[i], cfg, device)
             elif mode == "hybrid":
                 run_hybrid(inst, cfg, device)
+            elif mode == "sharded":
+                run_sharded(on_card[i], cfg, devices)
             else:
                 got, want = run_check(inst, cfg, device, on_card[i])
                 if got != want:
