@@ -58,7 +58,13 @@ C++ engine's result exactly:
   * the C ABI (phase 16): `libtpu_msm_torch_embed.so` and its smoke host
     program built with g++, the program fed the 2^20 inputs as wire bytes, its 64 bytes
     equal to the native engine's, its calls timed beside `msm_best_wire`
-    and `msm_best` in Python.
+    and `msm_best` in Python;
+  * the exported MSM (phase 17): `bindings.export.export_msm` at 2^20 with
+    the tuned row on cuda:0, saved, loaded (`load_msm`) and held against
+    eager `msm_device` bit for bit and against the native engine, with
+    equal kernel launches, both timed in turns; an artifact saved at 2^12
+    loaded and run in a fresh process that imports only the loader; the
+    per-window route at 2^12 exported and held against eager likewise.
 
 Phase 5 also runs the CLI's `22 1 stream 1` and `20 1 hybrid 1`, each of
 which holds its result against the native engine.
@@ -102,7 +108,8 @@ montmul_chain kernel on one lane), and the chain of width-16 and
 width-1 `padd` launches it replaced, timed in the same run.
 
 The kernel counters are set to 0 just before each path and read just after.
-One line per phase on stdout; then the kernels' JSON line, the card's
+Lines on stdout carry their phase and the seconds since the start; then the
+kernels' JSON line (with each phase's seconds, `phase_seconds`), the card's
 `nvidia-smi` name and power limit, and last
 `{"ok": true, "device": {...}}`. Any failure raises: the script exits
 non-zero with the traceback and prints no `ok` line. Without a CUDA device,
@@ -132,8 +139,13 @@ BASE_POINTS = 512
 POINT_STEP = 0xDEADBEEF
 
 
+T0 = time.perf_counter()
+
+
 def log(phase, msg):
-    print(f"[{phase}] {msg}", flush=True)
+    """One line of phase `phase`, with the seconds since the script
+    started."""
+    print(f"[{phase} +{time.perf_counter() - T0:.1f}s] {msg}", flush=True)
 
 
 # The least span of one timing, in ms: a call that takes less is repeated
@@ -193,6 +205,20 @@ def graph_ms(fn):
 
 
 GRAPH_CALLS = 20
+
+
+def once(fn):
+    """(fn(), its time in ms by CUDA events): one call, as cuda_ms times a
+    call of LONG_CALL_MS or more, where its result is wanted too."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def max_abs_err(got, want):
@@ -378,15 +404,16 @@ def bound(work):
 def timer(phase):
     """timed(name, shape, kernel_fn, plain_fn, work, ...): the kernel's
     device time (graph_ms) and its time a call back to back with the host's
-    share (cuda_ms, `call_ms`), the plain version's (cuda_ms), the bound of
+    share (cuda_ms, `call_ms`), the plain version's (cuda_ms, or `plain_ms`
+    where the caller timed it already, by once()), the bound of
     `work` (see bound) beside them, and the library call's time where one
     PyTorch call computes the same function."""
 
     def timed(name, shape, fn, plain, work, plain_shape=None, inner=None,
-              library=None):
+              library=None, plain_ms=None):
         ms = graph_ms(fn)
         call_ms = cuda_ms(fn, inner=inner)
-        pms = cuda_ms(plain, inner=inner)
+        pms = cuda_ms(plain, inner=inner) if plain_ms is None else plain_ms
         lib = cuda_ms(library, inner=inner) if library else None
         rec = {"shape": str(shape), "ms": ms, "call_ms": call_ms,
                "plain_ms": pms, "plain_shape": str(plain_shape or shape),
@@ -589,7 +616,8 @@ def phase_kernels(dev, scalars):
                                    group_y[0, :, :8].contiguous()),
         ec_work(11 * finite(group_x.transpose(0, 1), group_y.transpose(0, 1)),
                 g * steps * lanes, 16 + 48),
-        plain_shape=[8, 8, lanes]), other_shapes=[one])
+        plain_shape=[8, 8, lanes], plain_ms=one["plain_ms"]),
+        other_shapes=[one])
     del group_x, group_y
 
     # Projective operands for fold_add and padd, tiled to each width. Lane 0
@@ -827,19 +855,24 @@ def phase_tail(dev, entries, sh, big):
     sums = [tile(a.roll(w, dims=1), w) for a in big]
     x_n[0][:, 1], x_n[2][:, 1] = 0, 0
     sums[0][:, 2], sums[2][:, 2] = 0, 0
-    for signed in (True, False):
-        check("window_tail", [16, w, f"c {c}", "signed" if signed else
+    # The plain versions take seconds here: each is timed by the call whose
+    # result the check reads (once), the one at the main path's digit sign.
+    signed = sh["signed"]
+    plain_ms = {}
+    for sgn in (True, False):
+        want, ms = once(lambda: cc.window_tail_plain(*x_n, *sums, c, sgn))
+        if sgn == signed:
+            plain_ms["window_tail"] = ms
+        check("window_tail", [16, w, f"c {c}", "signed" if sgn else
                               "unsigned"],
-              cc.window_tail(*x_n, *sums, c, signed),
-              cc.window_tail_plain(*x_n, *sums, c, signed))
+              cc.window_tail(*x_n, *sums, c, sgn), want)
     # (W, 16, 1) window sums, window 3 infinite.
     wsums = [tile(a.roll(2 * w, dims=1), w).t().reshape(w, 16, 1).contiguous()
              for a in big]
     wsums[0][3], wsums[2][3] = 0, 0
-    check("horner", [w, 16, 1, f"c {c}"], cc.horner(*wsums, c),
-          cc.horner_plain(*wsums, c))
+    want, plain_ms["horner"] = once(lambda: cc.horner_plain(*wsums, c))
+    check("horner", [w, 16, 1, f"c {c}"], cc.horner(*wsums, c), want)
 
-    signed = sh["signed"]
     lat = product_latency_ms(dev)
     floor, muls = product_pipe_floor_ms()
     tail_adds = (c - 1) * (1 if signed else 2) + 1
@@ -863,7 +896,8 @@ def phase_tail(dev, entries, sh, big):
              lambda: cc.horner_plain(*wsums, c), horner_adds,
              ec_work(12 * horner_adds, w + 1, 48), old_horner)):
         rec = timed(name, [16, w, f"c {c}", "signed" if signed else
-                           "unsigned"], fn, plain, work)
+                           "unsigned"], fn, plain, work,
+                    plain_ms=plain_ms[name])
         latency = adds * 2 * lat
         pipe = adds * 2 * floor
         old_ms = cuda_ms(old)
@@ -1398,11 +1432,19 @@ def phase_scan_rows_phases(dev, entries):
         f"kernel: {json.dumps(rec)}")
 
 
+# The CLI's runs in phase 5: the kernel check, and three modes each held
+# against the native engine.
+CLI_RUNS = (["--check-kernels"], ["16", "1", "check", "1"],
+            ["22", "1", "stream", "1"], ["20", "1", "hybrid", "1"])
+
+
 def phase_cli():
-    """The profiler CLI in subprocesses: --check-kernels, `20 1 check 1`,
-    `22 1 stream 1` and `20 1 hybrid 1` (each of the last two holds its
-    result against the native engine), with the fixture cache in a
-    temporary directory. Returns the launches --check-kernels logged."""
+    """The profiler CLI in four subprocesses at once (CLI_RUNS):
+    --check-kernels, `16 1 check 1`, `22 1 stream 1` and `20 1 hybrid 1`
+    (each of the last three holds its result against the native engine; the
+    check mode at 2^16, since phase 3 holds msm_best at 2^20 against it in
+    process), with the fixture cache in a temporary directory. Returns the
+    launches --check-kernels logged."""
     from tpu_msm_torch.utils import preprocess
 
     root = Path(__file__).resolve().parent
@@ -1418,30 +1460,52 @@ def phase_cli():
         np.savez(path, px0=inst.px, py0=inst.py, s0=inst.scalars,
                  num=np.array([1]))
         del inst
-        for args in (["--check-kernels"], ["20", "1", "check", "1"],
-                     ["22", "1", "stream", "1"], ["20", "1", "hybrid", "1"]):
+        # The four processes run at once, each writing to its own files:
+        # each pays an import and a build check, which then overlap.
+        procs = []
+        try:
+            for i, args in enumerate(CLI_RUNS):
+                out = open(Path(cache) / f"cli{i}.out", "w+")
+                err = open(Path(cache) / f"cli{i}.err", "w+")
+                procs.append((args, subprocess.Popen(
+                    [sys.executable, "-m", "tpu_msm_torch.cli.profiler",
+                     *args], cwd=root, env=env, stdout=out, stderr=err),
+                    out, err))
             t0 = time.perf_counter()
-            proc = subprocess.run(
-                [sys.executable, "-m", "tpu_msm_torch.cli.profiler", *args],
-                cwd=root, env=env, capture_output=True, text=True,
-                timeout=600)
-            lines = proc.stderr.splitlines()
-            for line in lines:
-                if " kernel " in line or "Execution" in line or "==" in line:
-                    log(5, f"{' '.join(args)}: "
-                        + line.split(" INFO ")[-1].split(" ERROR ")[-1])
-                if "kernel launches " in line:
-                    launches = json.loads(line.split("kernel launches ", 1)[1])
-            if proc.returncode != 0:
-                raise AssertionError(f"profiler {' '.join(args)}: rc "
-                                     f"{proc.returncode}\n" + proc.stdout
-                                     + "\n".join(lines[-40:]))
-            if args[2:3] in (["stream"], ["hybrid"]) and not any(
-                    f"{args[2]} == cpu" in line for line in lines):
-                raise AssertionError(f"profiler {' '.join(args)}: no check "
-                                     f"against the native engine logged")
-            log(5, f"profiler {' '.join(args)}: rc 0 in "
-                f"{time.perf_counter() - t0:.1f} s")
+            for args, proc, out, err in procs:
+                proc.wait(timeout=600)
+                out.seek(0)
+                err.seek(0)
+                lines = err.read().splitlines()
+                for line in lines:
+                    if " kernel " in line or "Execution" in line \
+                            or "==" in line:
+                        log(5, f"{' '.join(args)}: " + line.split(
+                            " INFO ")[-1].split(" ERROR ")[-1])
+                    if "kernel launches " in line:
+                        launches = json.loads(
+                            line.split("kernel launches ", 1)[1])
+                if proc.returncode != 0:
+                    raise AssertionError(
+                        f"profiler {' '.join(args)}: rc {proc.returncode}\n"
+                        + out.read() + "\n".join(lines[-40:]))
+                mode = {"check": "gpu"}.get(args[2], args[2]) \
+                    if len(args) == 4 else None
+                if mode and not any(f"{mode} == cpu" in line
+                                    for line in lines):
+                    raise AssertionError(f"profiler {' '.join(args)}: no "
+                                         f"check against the native engine "
+                                         f"logged")
+                log(5, f"profiler {' '.join(args)}: rc 0, done "
+                    f"{time.perf_counter() - t0:.1f} s after the four "
+                    f"started")
+        finally:
+            for _, proc, out, err in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+                out.close()
+                err.close()
     if launches is None or any(v == 0 for v in launches.values()):
         raise AssertionError(f"--check-kernels launches: {launches}")
     return launches
@@ -2244,6 +2308,218 @@ def phase_embed(dev, inputs, expected):
             "py_ms": py_ms}
 
 
+# --------------------------------------------------------------------------
+# The exported MSM (bindings/export.py).
+# --------------------------------------------------------------------------
+
+# The per-window route's configuration for phase 17: 512 scan lanes (not a
+# fused width), c = 16 signed, fanout 64 (a short rolled tree, a small
+# graph), so that pmadd, padd_group and fold_add_group run from an
+# artifact.
+EXPORT_WINDOW_LANES = 512
+EXPORT_WINDOW_FANOUT = 64
+# Turns of the loaded program and eager msm_device at 2^20, each timed.
+EXPORT_TURNS = 5
+
+
+def _loaded_and_eager(phase, what, fn, args, cfg, kernels):
+    """One call of the loaded program `fn` and one of eager msm_device on
+    `args`, each with the counters set to 0 just before it and read just
+    after; raises unless their (x, y, z) are bit-identical and every
+    kernel's launches equal. Returns (affine point, the loaded call's
+    launches)."""
+    import torch
+
+    import tpu_msm_torch
+
+    reset_counts()
+    got = fn(*args)
+    torch.cuda.synchronize()
+    loaded = read_counts(phase, kernels)
+    reset_counts()
+    want = tuple(tpu_msm_torch.msm_device(*args, cfg))
+    torch.cuda.synchronize()
+    eager = read_counts(phase, kernels)
+    if not (isinstance(got, tuple) and len(got) == 3
+            and all(torch.equal(g, w) for g, w in zip(got, want))):
+        raise AssertionError(f"{what}: the loaded program's (x, y, z) is not "
+                             f"eager msm_device's")
+    if loaded != eager:
+        raise AssertionError(f"{what}: launches of the loaded program "
+                             f"{loaded} != eager {eager}")
+    log(phase, f"{what}: loaded program == eager msm_device (x, y, z bit for "
+        f"bit), launches equal: {json.dumps(loaded)}")
+    return affine(got), loaded
+
+
+# What the fresh process of phase 17 runs, from the repository root: argv =
+# a JSON object of artifact paths, and the inputs' file. It imports only
+# bindings.export before it loads (chip_smoke, for its counters, after),
+# runs each artifact once with the counters set to 0, and prints one JSON
+# line: the load's seconds (torch's import included) and, per artifact, its
+# run's seconds, (x, y, z) limbs, launches and plain calls.
+FRESH_LOAD = r"""
+import json, sys, time
+t0 = time.perf_counter()
+import torch
+from tpu_msm_torch.bindings.export import load_msm
+fns = {k: load_msm(v) for k, v in json.loads(sys.argv[1]).items()}
+res = {"load_s": time.perf_counter() - t0}
+assert "jax" not in sys.modules and "tpu_msm" not in sys.modules
+import chip_smoke
+args = [a.cuda() for a in torch.load(sys.argv[2])]
+for k, fn in fns.items():
+    chip_smoke.reset_counts()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    kernels, plains = chip_smoke.counters()
+    res[k] = {"run_s": time.perf_counter() - t0,
+              "xyz": [a.cpu().numpy().view("uint32").tolist() for a in out],
+              "launches": {n: getattr(f, a) for n, (f, a) in kernels.items()},
+              "plain_calls": sum(f.calls for f in plains)}
+print(json.dumps(res))
+"""
+
+
+def phase_export(dev, inputs, expected):
+    """bindings.export on the card. At 2^12 two artifacts, the default
+    row's (fused) and the per-window route's (EXPORT_WINDOW_LANES lanes),
+    loaded and run in a fresh process (FRESH_LOAD) on inputs saved beside
+    them: each affine result the native engine's, and the per-window one
+    bit for bit eager msm_device's with the same launches. While that
+    process runs, at 2^20 with the tuned row on bench inputs: export_msm on
+    cuda:0, saved to a temporary directory, loaded in this process and held
+    against eager msm_device (bit for bit, and the launches of one call of
+    each) and the native engine (affine); after it ends, the two timed in
+    turns by CUDA events, EXPORT_TURNS calls each. Returns the launches of
+    one call of the loaded 2^20 program."""
+    import torch
+
+    import tpu_msm_torch
+    from tpu_msm_torch.bindings import export
+    from tpu_msm_torch.utils import interop
+    from tpu_msm_torch.utils.config import MsmConfig
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # ---- 2^12: the default row's artifact and the per-window route's,
+        # run in a fresh process ----
+        px, py, sl = inputs[12]
+        wcfg = MsmConfig(scan_lanes=EXPORT_WINDOW_LANES,
+                         reduce_fanout=EXPORT_WINDOW_FANOUT)
+        paths = {"default": tmp / "msm_12.pt2",
+                 "per_window": tmp / "msm_12_window.pt2"}
+        t0 = time.perf_counter()
+        export.export_msm(1 << 12, path=paths["default"], device=dev)
+        export.export_msm(1 << 12, wcfg, path=paths["per_window"],
+                          device=dev)
+        log(17, f"export_msm n=2^12, the default row and the per-window "
+            f"route ({wcfg}): {time.perf_counter() - t0:.2f} s")
+        torch.save(tuple(torch.from_numpy(a.view(np.int32)).clone()
+                         for a in (px, py, sl)), tmp / "inputs_12.pt")
+        t_fresh = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-c", FRESH_LOAD,
+             json.dumps({k: str(v) for k, v in paths.items()}),
+             str(tmp / "inputs_12.pt")],
+            cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        try:
+            # ---- 2^20, the tuned row ----
+            cfg = tpu_msm_torch.select_config(1 << 20, dev)
+            args = interop.limbs_to_device(*inputs[20], dev)
+            t0 = time.perf_counter()
+            data = export.export_msm(1 << 20, cfg, path=tmp / "msm_20.pt2",
+                                     device=dev)
+            export_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            fn = export.load_msm(tmp / "msm_20.pt2")
+            load_s = time.perf_counter() - t0
+            ops = [str(node.target) for node in fn.graph.nodes
+                   if node.op == "call_function"]
+            log(17, f"export_msm n=2^20 ({cfg}) on {dev}: {export_s:.2f} s, "
+                f"{len(data)} bytes; load_msm {load_s:.2f} s; the graph "
+                f"calls {len(ops)} functions, "
+                f"{sum(op.startswith('tpu_msm_torch.') for op in ops)} of "
+                f"them the port's operators")
+            fn(*args)  # warm
+            pt, launches = _loaded_and_eager(17, "n=2^20", fn, args, cfg,
+                                             MAIN_KERNELS)
+            expected_is(pt, expected[20], "the loaded program at 2^20")
+            out, err = proc.communicate(timeout=300)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        if proc.returncode != 0:
+            raise AssertionError(f"loading in a fresh process: rc "
+                                 f"{proc.returncode}\n{err[-4000:]}")
+        res = json.loads(out.splitlines()[-1])
+        log(17, f"n=2^12 artifacts in a fresh process (imports "
+            f"bindings.export only before it loads, no jax): both loaded in "
+            f"{res['load_s']:.2f} s (torch's import included), first runs "
+            f"{res['default']['run_s']:.3f} s (default row) and "
+            f"{res['per_window']['run_s']:.3f} s (per-window); the process "
+            f"{time.perf_counter() - t_fresh:.1f} s, beside the 2^20 export")
+
+        # The loaded 2^20 program and eager msm_device in turns, with the
+        # host's share of one call of each (until it returns).
+        times = {"loaded": [], "eager": []}
+        runs = {"loaded": lambda: fn(*args),
+                "eager": lambda: tpu_msm_torch.msm_device(*args, cfg)}
+        for i in range(EXPORT_TURNS):
+            for which in (("loaded", "eager") if i % 2 == 0
+                          else ("eager", "loaded")):
+                times[which].append(_events_ms(runs[which], 1))
+        med = {k: statistics.median(v) for k, v in times.items()}
+        host = {}
+        for which, run in runs.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            host[which] = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        log(17, f"n=2^20 in turns by CUDA events: loaded program median "
+            f"{med['loaded']:.3f} ms of {[round(t, 3) for t in times['loaded']]}"
+            f", eager msm_device median {med['eager']:.3f} ms of "
+            f"{[round(t, 3) for t in times['eager']]}; loaded / eager "
+            f"{med['loaded'] / med['eager']:.4f}; the host's share of a call "
+            f"(until it returns, before the card ends): loaded "
+            f"{host['loaded']:.3f} ms, eager {host['eager']:.3f} ms")
+        del fn, args
+
+        fresh = {k: tuple(np.asarray(a, dtype=np.uint32)
+                          for a in res[k]["xyz"]) for k in paths}
+        for k in paths:
+            if res[k]["plain_calls"]:
+                raise AssertionError(f"the {k} artifact ran a plain version "
+                                     f"on the card")
+            [pt] = interop.proj_limbs_to_affine_points(*fresh[k])
+            expected_is(pt, expected[12], f"the {k} artifact at 2^12 in a "
+                        f"fresh process")
+        # The per-window program against eager msm_device in this process:
+        # bit for bit, and the same launches of every kernel.
+        args = interop.limbs_to_device(px, py, sl, dev)
+        reset_counts()
+        want = tuple(tpu_msm_torch.msm_device(*args, wcfg))
+        torch.cuda.synchronize()
+        eager = read_counts(17, ("pmadd", "pmadd_group", "padd", "padd_group",
+                                 "fold_add", "fold_add_group", "digit_hist",
+                                 "window_tail", "horner"))
+        if not all(np.array_equal(g, interop.tensor_to_limbs(w))
+                   for g, w in zip(fresh["per_window"], want)):
+            raise AssertionError("the per-window artifact's (x, y, z) is not "
+                                 "eager msm_device's")
+        if res["per_window"]["launches"] != eager or eager["scan_madd"]:
+            raise AssertionError(f"per-window launches: artifact "
+                                 f"{res['per_window']['launches']}, eager "
+                                 f"{eager}")
+        log(17, f"per-window artifact at 2^12 == eager msm_device (x, y, z "
+            f"bit for bit), launches equal: {json.dumps(eager)}")
+    return launches
+
+
 EC = "tpu_msm_torch/csrc/ec_kernels.cu"
 PC = "tpu_msm/ops/pallas_curve.py"
 # name: (source, the TPU kernels it replaces, the path its launches count)
@@ -2295,8 +2571,14 @@ def main() -> int:
 
     t0 = time.perf_counter()
 
+    phase_seconds = {}
+    last = [t0]
+
     def lap(phase):
-        log(phase, f"phase done {time.perf_counter() - t0:.1f} s into the run")
+        now = time.perf_counter()
+        phase_seconds[str(phase)] = round(now - last[0], 1)
+        last[0] = now
+        log(phase, f"phase done {now - t0:.1f} s into the run")
 
     phase_build()
     lap(1)
@@ -2343,6 +2625,8 @@ def main() -> int:
     lap(15)
     phase_embed(dev, inputs, expected)
     lap(16)
+    export_launches = phase_export(dev, inputs, expected)
+    lap(17)
     phase_profile(dev, more)
     phase_scan_rows_phases(dev, entries)
     lap(6)
@@ -2355,9 +2639,12 @@ def main() -> int:
                 "path": PATHS[path],
                 "stream_launches": stream_launches[name] - (
                     stream_launches[SHARED_COUNTS[name]]
+                    if name in SHARED_COUNTS else 0),
+                "export_launches": export_launches[name] - (
+                    export_launches[SHARED_COUNTS[name]]
                     if name in SHARED_COUNTS else 0), **entries[name]}
                for name, (source, replaces, path) in SOURCES.items()]
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels, "phase_seconds": phase_seconds}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -141,8 +141,8 @@ def load() -> ctypes.CDLL:
 
 def on_cuda(*tensors) -> bool:
     """Which version a kernel wrapper runs: False for CPU tensors (the plain
-    version), True for CUDA tensors (the kernel, after checking dtype and
-    layout). Any other device, or operands on two devices, raises."""
+    version), True for CUDA tensors (the kernel). Any other device, or
+    operands on two devices, raises."""
     dev = tensors[0].device
     if any(t.device != dev for t in tensors):
         raise ValueError("kernel operands lie on different devices")
@@ -150,17 +150,23 @@ def on_cuda(*tensors) -> bool:
         return False
     if dev.type != "cuda":
         raise RuntimeError(f"no kernel for device {dev}")
-    for t in tensors:
-        if t.dtype != torch.int32:
-            raise TypeError(f"kernel operands must be int32, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError("kernel operands must be contiguous")
     return True
 
 
 def launch(name: str, device, *args) -> None:
     """Call C entry `name` on `device`'s current stream. Tensors pass as
-    their data pointers; a non-zero return (cudaGetLastError) raises."""
+    their data pointers, after checking that each is a contiguous int32
+    tensor on `device`; a non-zero return (cudaGetLastError) raises."""
+    for t in args:
+        if isinstance(t, torch.Tensor):
+            if t.dtype != torch.int32:
+                raise TypeError(f"kernel operands must be int32, got "
+                                f"{t.dtype}")
+            if not t.is_contiguous():
+                raise ValueError("kernel operands must be contiguous")
+            if t.device != device:
+                raise ValueError(f"kernel operand on {t.device}, the launch "
+                                 f"on {device}")
     fn = getattr(load(), name)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream

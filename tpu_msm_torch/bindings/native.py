@@ -92,11 +92,10 @@ def _ptr(a: np.ndarray):
     return a.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32))
 
 
-def msm(px, py, scalars) -> Affine:
+def msm_jacobian_limbs(px, py, scalars) -> np.ndarray:
     """CPU MSM on (16, n) limb arrays (Montgomery points, standard-form
-    scalars) -> affine int point, or None for infinity."""
-    from tpu_msm_torch.utils import interop
-
+    scalars) -> the engine's (48,) uint32 Jacobian result X‖Y‖Z, Montgomery
+    limbs."""
     lib = _load()
     px, py, scalars = _as_u32(px), _as_u32(py), _as_u32(scalars)
     if not (px.shape == py.shape == scalars.shape and px.shape[0] == bn254.LIMBS):
@@ -104,6 +103,16 @@ def msm(px, py, scalars) -> Affine:
     xyz = np.zeros(48, dtype=np.uint32)
     lib.tpu_msm_cpu_msm(_ptr(px), _ptr(py), _ptr(scalars), px.shape[1],
                         _ptr(xyz))
+    return xyz
+
+
+def msm(px, py, scalars) -> Affine:
+    """CPU MSM on (16, n) limb arrays (Montgomery points, standard-form
+    scalars) -> affine int point, or None for infinity."""
+    from tpu_msm_torch.utils import interop
+
+    xyz = msm_jacobian_limbs(px, py, scalars)
+    lib = _load()
     xy = np.zeros(32, dtype=np.uint32)
     lib.tpu_msm_cpu_to_affine(_ptr(xyz), _ptr(xy))
     if not xy.any():

@@ -51,10 +51,21 @@ What bounds the kernels, and what their design does about it, is written at
 the top of `csrc/ec_kernels.cu` and `csrc/montmul.cu` (the montmul kernel is
 in its own source).
 
+Each wrapper checks its operands' device, makes the choices that read the
+card (the kernel of padd, fold_add and pmadd; the chunks of
+scan_madd_rows) and calls its operator `torch.ops.tpu_msm_torch.<wrapper>` (ops/library.py),
+defined here beside it: the kernel's launch is the operator's CUDA
+implementation (with the checks of its operands' shapes and arguments, so
+a direct call of the operator is checked too), the plain version its CPU one
+(the module's `<wrapper>_plain` at each call, so a caller may replace it),
+and a fake one gives the output shapes to `torch.export`
+(bindings/export.py).
+
 Counters: `<wrapper>.launches` counts kernel launches (both kernels of
 padd, fold_add and pmadd; `<wrapper>.group_launches` those of the group
 kernel alone) and `<plain>.calls` counts plain-version calls; callers may reset
-them to 0.
+them to 0. The operators' implementations count, so the launches of a
+program that `torch.export` saved and loaded are counted too.
 Operands are int32 tensors that carry u32 bit patterns.
 """
 
@@ -66,7 +77,7 @@ import math
 import torch
 
 from tpu_msm_torch import _build
-from tpu_msm_torch.ops import curve, ec_rows, field
+from tpu_msm_torch.ops import curve, ec_rows, field, library
 from tpu_msm_torch.ops.curve import AffinePoint, ProjPoint
 
 _I32, _I64 = torch.int32, torch.int64
@@ -88,18 +99,32 @@ def _i32(ts):
     return tuple(t.to(_I32) for t in ts)
 
 
-def _elementwise(entry, ops):
-    """Launch the elementwise kernel of C entry `entry` on the card for
-    (16, N) CUDA operands; returns its three (16, N) results."""
+def _empty3(shape, like):
+    """Three new int32 tensors of `shape` on `like`'s device."""
+    return tuple(torch.empty(shape, dtype=_I32, device=like.device)
+                 for _ in range(3))
+
+
+def _check_elementwise(name, ops):
     if ops[0].dim() != 2 or ops[0].shape[0] != 16 or any(
             t.shape != ops[0].shape for t in ops):
-        raise ValueError(f"{entry} operands must all be (16, N)")
-    n = ops[0].shape[1]
-    if n < 1:
-        raise ValueError(f"{entry} needs N >= 1")
-    out = tuple(torch.empty_like(ops[0]) for _ in range(3))
-    _build.launch(entry, ops[0].device, *ops, *out, n)
+        raise ValueError(f"{name} operands must all be (16, N)")
+    if ops[0].shape[1] < 1:
+        raise ValueError(f"{name} needs N >= 1")
+
+
+def _elementwise(name, entry, ops):
+    """Launch the elementwise kernel of C entry `entry` (wrapper `name`) on
+    the card for (16, N) CUDA operands; returns its three (16, N)
+    results."""
+    _check_elementwise(name, ops)
+    out = _empty3(ops[0].shape, ops[0])
+    _build.launch(entry, ops[0].device, *ops, *out, ops[0].shape[1])
     return out
+
+
+def _elementwise_fake(*args):
+    return _empty3(args[0].shape, args[0])
 
 
 # --------------------------------------------------------------------------
@@ -135,25 +160,40 @@ def scan_madd_plain(gx: torch.Tensor, gy: torch.Tensor) -> torch.Tensor:
 scan_madd_plain.calls = 0
 
 
-def scan_madd(gx: torch.Tensor, gy: torch.Tensor) -> torch.Tensor:
-    """Kernel wrapper of scan_madd_plain (same arguments and result): one
-    launch for all G windows."""
-    if not _build.on_cuda(gx, gy):
-        return scan_madd_plain(gx, gy)
+def _scan_madd_fake(gx, gy):
+    return torch.empty(gx.shape[:-3] + (48,) + gx.shape[-2:], dtype=_I32,
+                       device=gx.device)
+
+
+def _scan_madd_cuda(gx, gy):
     if gx.dim() not in (3, 4) or gx.shape[-3] != 8 or gy.shape != gx.shape:
         raise ValueError(f"scan inputs must both be (8, steps, lanes) or "
                          f"(G, 8, steps, lanes), got {tuple(gx.shape)} and "
                          f"{tuple(gy.shape)}")
-    g = gx.shape[0] if gx.dim() == 4 else 1
-    steps, lanes = gx.shape[-2:]
-    if g < 1 or steps < 1 or lanes < 1:
+    if min(gx.shape[0] if gx.dim() == 4 else 1, *gx.shape[-2:]) < 1:
         raise ValueError("scan needs at least one window, step and lane")
-    out = torch.empty(gx.shape[:-3] + (48, steps, lanes), dtype=_I32,
-                      device=gx.device)
-    _build.launch("tpu_msm_scan_madd", gx.device, gx, gy, out, g, steps,
-                  lanes)
+    out = _scan_madd_fake(gx, gy)
+    g = gx.shape[0] if gx.dim() == 4 else 1
+    _build.launch("tpu_msm_scan_madd", gx.device, gx, gy, out, g,
+                  *gx.shape[-2:])
     scan_madd.launches += 1
     return out
+
+
+def _scan_madd_cpu(gx, gy):
+    return scan_madd_plain(gx, gy)
+
+
+_SCAN_MADD = library.define("scan_madd(Tensor gx, Tensor gy) -> Tensor",
+                            cuda=_scan_madd_cuda, cpu=_scan_madd_cpu,
+                            fake=_scan_madd_fake)
+
+
+def scan_madd(gx: torch.Tensor, gy: torch.Tensor) -> torch.Tensor:
+    """Kernel wrapper of scan_madd_plain (same arguments and result): one
+    launch for all G windows."""
+    _build.on_cuda(gx, gy)
+    return _SCAN_MADD(gx, gy)
 
 
 scan_madd.launches = 0
@@ -198,12 +238,16 @@ def kernel_path(width: int, sm_count: int) -> str:
     return "group" if width < GROUP_BELOW_PER_SM * sm_count else "thread"
 
 
-def _entry(name: str, path, width: int, device) -> str:
-    """The C entry's name for `path`, or for the path kernel_path gives
+def _group(path, width: int, device) -> bool:
+    """Whether the group kernel runs: `path`, or the path kernel_path gives
     `width` on `device`'s SM count when path is None."""
     if path is None:
         path = kernel_path(width, _sm_count(device))
-    return f"tpu_msm_{name}" + ("_group" if path == "group" else "")
+    return path == "group"
+
+
+def _entry(name: str, group: bool) -> str:
+    return f"tpu_msm_{name}" + ("_group" if group else "")
 
 
 def _check_path(path) -> None:
@@ -217,18 +261,37 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+def _padd_cuda(ax, ay, az, bx, by, bz, group):
+    out = _elementwise("padd", _entry("padd", group),
+                       (ax, ay, az, bx, by, bz))
+    padd.launches += 1
+    padd.group_launches += group
+    return out
+
+
+def _padd_cpu(ax, ay, az, bx, by, bz, group):
+    return padd_plain(ax, ay, az, bx, by, bz)
+
+
+_PADD = library.define(
+    "padd(Tensor ax, Tensor ay, Tensor az, Tensor bx, Tensor by, Tensor bz, "
+    "bool group) -> (Tensor, Tensor, Tensor)",
+    cuda=_padd_cuda, cpu=_padd_cpu, fake=_elementwise_fake)
+
+
+def _group_on(ops, path, width) -> bool:
+    """Whether the group kernel runs for `ops`, of `width` elements or
+    lanes: on the card by `_group`; on the CPU False (the plain version
+    runs either way)."""
+    _check_path(path)
+    return _build.on_cuda(*ops) and _group(path, width, ops[0].device)
+
+
 def padd(ax, ay, az, bx, by, bz, path=None):
     """Kernel wrapper of padd_plain (same arguments and result). `path`
     ("thread" or "group") picks the kernel; None lets kernel_path choose."""
     ops = (ax, ay, az, bx, by, bz)
-    _check_path(path)
-    if not _build.on_cuda(*ops):
-        return padd_plain(*ops)
-    entry = _entry("padd", path, ax.shape[-1], ax.device)
-    out = _elementwise(entry, ops)
-    padd.launches += 1
-    padd.group_launches += entry.endswith("_group")
-    return out
+    return _PADD(*ops, _group_on(ops, path, ax.shape[-1]))
 
 
 padd.launches = 0
@@ -287,21 +350,35 @@ def _check_tail_args(c: int, w: int) -> None:
                          f"W = {w}")
 
 
-def window_tail(nx, ny, nz, sx, sy, sz, c: int, signed_digits: bool):
-    """Kernel wrapper of window_tail_plain (same arguments and result): one
-    launch, one block of eight lanes per window."""
+def _window_tail_cuda(nx, ny, nz, sx, sy, sz, c, signed_digits):
     ops = (nx, ny, nz, sx, sy, sz)
-    if not _build.on_cuda(*ops):
-        return window_tail_plain(*ops, c, signed_digits)
     if nx.dim() != 2 or nx.shape[0] != 16 or any(t.shape != nx.shape
                                                  for t in ops):
         raise ValueError("window_tail operands must all be (16, W)")
     _check_tail_args(c, nx.shape[1])
-    out = tuple(torch.empty_like(nx) for _ in range(3))
-    _build.launch("tpu_msm_window_tail", nx.device, *ops, *out, nx.shape[1],
-                  c, int(signed_digits))
+    out = _empty3(nx.shape, nx)
+    _build.launch("tpu_msm_window_tail", nx.device, nx, ny, nz, sx, sy, sz,
+                  *out, nx.shape[1], c, int(signed_digits))
     window_tail.launches += 1
     return out
+
+
+def _window_tail_cpu(nx, ny, nz, sx, sy, sz, c, signed_digits):
+    return window_tail_plain(nx, ny, nz, sx, sy, sz, c, signed_digits)
+
+
+_WINDOW_TAIL = library.define(
+    "window_tail(Tensor nx, Tensor ny, Tensor nz, Tensor sx, Tensor sy, "
+    "Tensor sz, int c, bool signed_digits) -> (Tensor, Tensor, Tensor)",
+    cuda=_window_tail_cuda, cpu=_window_tail_cpu, fake=_elementwise_fake)
+
+
+def window_tail(nx, ny, nz, sx, sy, sz, c: int, signed_digits: bool):
+    """Kernel wrapper of window_tail_plain (same arguments and result): one
+    launch, one block of eight lanes per window."""
+    ops = (nx, ny, nz, sx, sy, sz)
+    _build.on_cuda(*ops)
+    return _WINDOW_TAIL(*ops, c, signed_digits)
 
 
 window_tail.launches = 0
@@ -317,21 +394,38 @@ def horner_plain(wx, wy, wz, c: int):
 horner_plain.calls = 0
 
 
-def horner(wx, wy, wz, c: int):
-    """Kernel wrapper of horner_plain (same arguments and result): one
-    launch of one block of eight lanes."""
-    if not _build.on_cuda(wx, wy, wz):
-        return horner_plain(wx, wy, wz, c)
+def _horner_fake(wx, wy, wz, c):
+    return _empty3((16, 1), wx)
+
+
+def _horner_cuda(wx, wy, wz, c):
     if wx.dim() != 3 or wx.shape[1:] != (16, 1) or wy.shape != wx.shape \
             or wz.shape != wx.shape:
         raise ValueError("horner operands must all be (W, 16, 1)")
     _check_tail_args(c, wx.shape[0])
-    out = tuple(torch.empty((16, 1), dtype=_I32, device=wx.device)
-                for _ in range(3))
+    out = _horner_fake(wx, wy, wz, c)
     _build.launch("tpu_msm_horner", wx.device, wx, wy, wz, *out, wx.shape[0],
                   c)
     horner.launches += 1
     return out
+
+
+def _horner_cpu(wx, wy, wz, c):
+    # One window's sum is the result itself: copied, since an operator's
+    # output is never a view of its input.
+    return tuple(a.clone() for a in horner_plain(wx, wy, wz, c))
+
+
+_HORNER = library.define(
+    "horner(Tensor wx, Tensor wy, Tensor wz, int c) -> (Tensor, Tensor, "
+    "Tensor)", cuda=_horner_cuda, cpu=_horner_cpu, fake=_horner_fake)
+
+
+def horner(wx, wy, wz, c: int):
+    """Kernel wrapper of horner_plain (same arguments and result): one
+    launch of one block of eight lanes."""
+    _build.on_cuda(wx, wy, wz)
+    return _HORNER(wx, wy, wz, c)
 
 
 horner.launches = 0
@@ -356,26 +450,40 @@ def fold_add_plain(bx, by, bz):
 fold_add_plain.calls = 0
 
 
+def _fold_add_fake(bx, by, bz, group):
+    return _empty3((16, bx.shape[2]), bx)
+
+
+def _fold_add_cuda(bx, by, bz, group):
+    if bx.dim() != 3 or bx.shape[0] != 16 or by.shape != bx.shape \
+            or bz.shape != bx.shape:
+        raise ValueError("fold_add operands must all be (16, steps, lanes)")
+    if min(bx.shape[1:]) < 1:
+        raise ValueError("fold_add needs at least one step and one lane")
+    out = _fold_add_fake(bx, by, bz, group)
+    _build.launch(_entry("fold_add", group), bx.device, bx, by, bz, *out,
+                  *bx.shape[1:])
+    fold_add.launches += 1
+    fold_add.group_launches += group
+    return out
+
+
+def _fold_add_cpu(bx, by, bz, group):
+    return fold_add_plain(bx, by, bz)
+
+
+_FOLD_ADD = library.define(
+    "fold_add(Tensor bx, Tensor by, Tensor bz, bool group) -> (Tensor, "
+    "Tensor, Tensor)", cuda=_fold_add_cuda, cpu=_fold_add_cpu,
+    fake=_fold_add_fake)
+
+
 def fold_add(bx, by, bz, path=None):
     """Kernel wrapper of fold_add_plain (same arguments and result), one
     launch. `path` ("thread" or "group") picks the kernel; None lets
     kernel_path choose."""
-    _check_path(path)
-    if not _build.on_cuda(bx, by, bz):
-        return fold_add_plain(bx, by, bz)
-    if bx.dim() != 3 or bx.shape[0] != 16 or by.shape != bx.shape \
-            or bz.shape != bx.shape:
-        raise ValueError("fold_add operands must all be (16, steps, lanes)")
-    _, steps, lanes = bx.shape
-    if steps < 1 or lanes < 1:
-        raise ValueError("fold_add needs at least one step and one lane")
-    entry = _entry("fold_add", path, lanes, bx.device)
-    out = tuple(torch.empty((16, lanes), dtype=_I32, device=bx.device)
-                for _ in range(3))
-    _build.launch(entry, bx.device, bx, by, bz, *out, steps, lanes)
-    fold_add.launches += 1
-    fold_add.group_launches += entry.endswith("_group")
-    return out
+    ops = (bx, by, bz)
+    return _FOLD_ADD(*ops, _group_on(ops, path, bx.shape[-1]))
 
 
 fold_add.launches = 0
@@ -397,18 +505,29 @@ def pmadd_plain(px, py, pz, qx, qy):
 pmadd_plain.calls = 0
 
 
+def _pmadd_cuda(px, py, pz, qx, qy, group):
+    out = _elementwise("pmadd", _entry("pmadd", group),
+                       (px, py, pz, qx, qy))
+    pmadd.launches += 1
+    pmadd.group_launches += group
+    return out
+
+
+def _pmadd_cpu(px, py, pz, qx, qy, group):
+    return pmadd_plain(px, py, pz, qx, qy)
+
+
+_PMADD = library.define(
+    "pmadd(Tensor px, Tensor py, Tensor pz, Tensor qx, Tensor qy, "
+    "bool group) -> (Tensor, Tensor, Tensor)",
+    cuda=_pmadd_cuda, cpu=_pmadd_cpu, fake=_elementwise_fake)
+
+
 def pmadd(px, py, pz, qx, qy, path=None):
     """Kernel wrapper of pmadd_plain (same arguments and result). `path`
     ("thread" or "group") picks the kernel; None lets kernel_path choose."""
     ops = (px, py, pz, qx, qy)
-    _check_path(path)
-    if not _build.on_cuda(*ops):
-        return pmadd_plain(*ops)
-    entry = _entry("pmadd", path, px.shape[-1], px.device)
-    out = _elementwise(entry, ops)
-    pmadd.launches += 1
-    pmadd.group_launches += entry.endswith("_group")
-    return out
+    return _PMADD(*ops, _group_on(ops, path, px.shape[-1]))
 
 
 pmadd.launches = 0
@@ -425,14 +544,27 @@ def jac_madd_plain(x1, y1, z1, x2, y2):
 jac_madd_plain.calls = 0
 
 
+def _jac_madd_cuda(x1, y1, z1, x2, y2):
+    out = _elementwise("jac_madd", "tpu_msm_jac_madd", (x1, y1, z1, x2, y2))
+    jac_madd.launches += 1
+    return out
+
+
+def _jac_madd_cpu(x1, y1, z1, x2, y2):
+    return jac_madd_plain(x1, y1, z1, x2, y2)
+
+
+_JAC_MADD = library.define(
+    "jac_madd(Tensor x1, Tensor y1, Tensor z1, Tensor x2, Tensor y2) -> "
+    "(Tensor, Tensor, Tensor)",
+    cuda=_jac_madd_cuda, cpu=_jac_madd_cpu, fake=_elementwise_fake)
+
+
 def jac_madd(x1, y1, z1, x2, y2):
     """Kernel wrapper of jac_madd_plain (same arguments and result)."""
     ops = (x1, y1, z1, x2, y2)
-    if not _build.on_cuda(*ops):
-        return jac_madd_plain(*ops)
-    out = _elementwise("tpu_msm_jac_madd", ops)
-    jac_madd.launches += 1
-    return out
+    _build.on_cuda(*ops)
+    return _JAC_MADD(*ops)
 
 
 jac_madd.launches = 0
@@ -448,14 +580,28 @@ def jac_add_plain(x1, y1, z1, x2, y2, z2):
 jac_add_plain.calls = 0
 
 
+def _jac_add_cuda(x1, y1, z1, x2, y2, z2):
+    out = _elementwise("jac_add", "tpu_msm_jac_add",
+                       (x1, y1, z1, x2, y2, z2))
+    jac_add.launches += 1
+    return out
+
+
+def _jac_add_cpu(x1, y1, z1, x2, y2, z2):
+    return jac_add_plain(x1, y1, z1, x2, y2, z2)
+
+
+_JAC_ADD = library.define(
+    "jac_add(Tensor x1, Tensor y1, Tensor z1, Tensor x2, Tensor y2, "
+    "Tensor z2) -> (Tensor, Tensor, Tensor)",
+    cuda=_jac_add_cuda, cpu=_jac_add_cpu, fake=_elementwise_fake)
+
+
 def jac_add(x1, y1, z1, x2, y2, z2):
     """Kernel wrapper of jac_add_plain (same arguments and result)."""
     ops = (x1, y1, z1, x2, y2, z2)
-    if not _build.on_cuda(*ops):
-        return jac_add_plain(*ops)
-    out = _elementwise("tpu_msm_jac_add", ops)
-    jac_add.launches += 1
-    return out
+    _build.on_cuda(*ops)
+    return _JAC_ADD(*ops)
 
 
 jac_add.launches = 0
@@ -551,27 +697,46 @@ def scan_madd_rows_plain(gx: torch.Tensor, gy: torch.Tensor, chunks=1):
 scan_madd_rows_plain.calls = 0
 
 
-def scan_madd_rows(gx: torch.Tensor, gy: torch.Tensor, chunks=None):
-    """Kernel wrapper of scan_madd_rows_plain (same arguments and result):
-    one C entry, three launches, at `chunks` chunks; None takes
-    scan_rows_chunks on the card and 1 on the CPU."""
-    if not _build.on_cuda(gx, gy):
-        return scan_madd_rows_plain(gx, gy, 1 if chunks is None else chunks)
+def _scan_madd_rows_fake(gx, gy, chunks):
+    return _empty3(gx.shape, gx)
+
+
+def _scan_madd_rows_cuda(gx, gy, chunks):
     if gx.dim() != 3 or gx.shape[0] != 16 or gy.shape != gx.shape:
         raise ValueError(f"scan inputs must both be (16, steps, lanes), got "
                          f"{tuple(gx.shape)} and {tuple(gy.shape)}")
     _, steps, lanes = gx.shape
-    if steps < 1 or lanes < 1:
+    if lanes < 1:
         raise ValueError("scan needs at least one step and one lane")
-    if chunks is None:
-        chunks = scan_rows_chunks(steps, lanes, _sm_count(gx.device))
     k, _ = scan_rows_chunking(steps, chunks)
-    out = tuple(torch.empty_like(gx) for _ in range(3))
+    out = _empty3(gx.shape, gx)
     sums = torch.empty((k - 1, 48, lanes), dtype=_I32, device=gx.device)
     _build.launch("tpu_msm_scan_madd_rows", gx.device, gx, gy, *out, sums,
                   steps, lanes, k)
     scan_madd_rows.launches += 1
     return out
+
+
+def _scan_madd_rows_cpu(gx, gy, chunks):
+    return scan_madd_rows_plain(gx, gy, chunks)
+
+
+_SCAN_MADD_ROWS = library.define(
+    "scan_madd_rows(Tensor gx, Tensor gy, int chunks) -> (Tensor, Tensor, "
+    "Tensor)", cuda=_scan_madd_rows_cuda, cpu=_scan_madd_rows_cpu,
+    fake=_scan_madd_rows_fake)
+
+
+def scan_madd_rows(gx: torch.Tensor, gy: torch.Tensor, chunks=None):
+    """Kernel wrapper of scan_madd_rows_plain (same arguments and result):
+    one C entry, three launches, at `chunks` chunks; None takes
+    scan_rows_chunks on the card and 1 on the CPU."""
+    on_card = _build.on_cuda(gx, gy)
+    if chunks is None:
+        chunks = 1
+        if on_card and gx.dim() == 3 and min(gx.shape[1:]) >= 1:
+            chunks = scan_rows_chunks(*gx.shape[1:], _sm_count(gx.device))
+    return _SCAN_MADD_ROWS(gx, gy, chunks)
 
 
 scan_madd_rows.launches = 0
@@ -616,20 +781,37 @@ def montmul_chain_plain(a, x, chain: int, steps: int, ilp: int = 1):
 montmul_chain_plain.calls = 0
 
 
-def montmul_chain(a, x, chain: int, steps: int, ilp: int = 1):
-    """Kernel wrapper of montmul_chain_plain (same arguments and result)."""
-    if not _build.on_cuda(a, x):
-        return montmul_chain_plain(a, x, chain, steps, ilp)
+def _montmul_chain_fake(a, x, chain, steps, ilp):
+    return torch.empty(a.shape, dtype=_I32, device=a.device)
+
+
+def _montmul_chain_cuda(a, x, chain, steps, ilp):
     _check_montmul_args(chain, steps, ilp)
     if a.dim() != 2 or a.shape[0] != 16 or x.shape != a.shape \
             or a.shape[1] < 1:
         raise ValueError(f"montmul_chain operands must both be (16, N), "
                          f"N >= 1, got {tuple(a.shape)} and {tuple(x.shape)}")
-    out = torch.empty_like(a)
+    out = _montmul_chain_fake(a, x, chain, steps, ilp)
     _build.launch("tpu_msm_montmul_chain", a.device, a, x, out, a.shape[1],
                   chain, steps, ilp)
     montmul_chain.launches += 1
     return out
+
+
+def _montmul_chain_cpu(a, x, chain, steps, ilp):
+    return montmul_chain_plain(a, x, chain, steps, ilp)
+
+
+_MONTMUL_CHAIN = library.define(
+    "montmul_chain(Tensor a, Tensor x, int chain, int steps, int ilp) -> "
+    "Tensor", cuda=_montmul_chain_cuda, cpu=_montmul_chain_cpu,
+    fake=_montmul_chain_fake)
+
+
+def montmul_chain(a, x, chain: int, steps: int, ilp: int = 1):
+    """Kernel wrapper of montmul_chain_plain (same arguments and result)."""
+    _build.on_cuda(a, x)
+    return _MONTMUL_CHAIN(a, x, chain, steps, ilp)
 
 
 montmul_chain.launches = 0

@@ -1,5 +1,5 @@
 """BN254 G1 points in homogeneous projective and Jacobian coordinates,
-plain torch (counterpart of `tpu_msm/ops/curve.py:35-200,267-278,310-411`).
+plain torch (counterpart of `tpu_msm/ops/curve.py`).
 
 Affine (x, y), projective (X : Y : Z) and Jacobian (X, Y, Z) points hold
 (16, *batch) Montgomery limb tensors. The affine infinity is the (0, 0)
@@ -10,16 +10,21 @@ identity, with no per-lane branches. The Jacobian adders (add-2007-bl,
 madd-2007-bl) are made complete by selects: the generic formula, the
 dbl-2009-l fallback and the infinity cases are all computed and combined.
 The MSM runs on the RCB formulas; the Jacobian ops are what the Jacobian
-kernels (`cuda_curve.jac_madd`, `jac_add`) are checked against.
+kernels (`cuda_curve.jac_madd`, `jac_add`) are checked against. Off the
+MSM's path, as in the JAX package: `scalar_mul`, `mul_all_ones`, the
+conversions to affine (a field inversion each) and `affine_on_curve`.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import math
+
 import torch
 
-from tpu_msm_torch.ops import ec_rows, field
+from tpu_msm_torch.models import bn254
+from tpu_msm_torch.ops import ec_rows, field, u256
 
 
 class AffinePoint(NamedTuple):
@@ -226,3 +231,80 @@ def jac_eq(p: JacPoint, q: JacPoint):
     inf_p = jac_is_infinity(p)
     inf_q = jac_is_infinity(q)
     return (inf_p & inf_q) | (~inf_p & ~inf_q & x_eq & y_eq)
+
+
+# --------------------------------------------------------------------------
+# Scalar multiplication, conversions and predicates
+# (`tpu_msm/ops/curve.py:203-300,395-403`): not on the MSM's path.
+# --------------------------------------------------------------------------
+
+def scalar_mul(p: JacPoint, scalar_limbs,
+               num_bits: int = bn254.TOTAL_BITS) -> JacPoint:
+    """Per-lane double-and-add of p by (16, *batch) scalar limbs, the most
+    significant of `num_bits` bits first."""
+    acc = jac_infinity(p.z.shape[1:], p.z.device, p.z.dtype)
+    for k in range(num_bits - 1, -1, -1):
+        acc = jac_double(acc)
+        acc = select_point(u256.test_bit(scalar_limbs, k) == 1,
+                           jac_add(acc, p), acc)
+    return acc
+
+
+def mul_all_ones(p: JacPoint, c: int) -> JacPoint:
+    """(2^c - 1)·p by c - 1 rounds of acc = 2·acc + p (the window sum's
+    M·X(n) for unsigned digits)."""
+    acc = p
+    for _ in range(c - 1):
+        acc = jac_add(jac_double(acc), p)
+    return acc
+
+
+# The widest batch inverted one element at a time: above it, Montgomery's
+# trick (about 3 products an element against about 380).
+INV_ELEMENTWISE_MAX = 16
+
+
+def _inv_for_batch(z):
+    if math.prod(z.shape[1:]) > INV_ELEMENTWISE_MAX:
+        return field.batch_inv_mont(z.reshape(z.shape[0], -1)).reshape(
+            z.shape)
+    return field.inv_mont(z)
+
+
+def _affine_or_infinity(x, y, inf) -> AffinePoint:
+    zero = torch.zeros_like(x)
+    return AffinePoint(field.select(inf, zero, x), field.select(inf, zero, y))
+
+
+def jac_to_affine(p: JacPoint) -> AffinePoint:
+    """(X / Z^2, Y / Z^3) in Montgomery form; infinity -> (0, 0)."""
+    zinv = _inv_for_batch(p.z)
+    zinv2 = field.mont_sqr(zinv)
+    return _affine_or_infinity(
+        field.mont_mul(p.x, zinv2),
+        field.mont_mul(p.y, field.mont_mul(zinv, zinv2)), jac_is_infinity(p))
+
+
+def proj_to_affine(p: ProjPoint) -> AffinePoint:
+    """(X / Z, Y / Z) in Montgomery form; infinity -> (0, 0)."""
+    zinv = _inv_for_batch(p.z)
+    return _affine_or_infinity(field.mont_mul(p.x, zinv),
+                               field.mont_mul(p.y, zinv),
+                               proj_is_infinity(p))
+
+
+def affine_on_curve(p: AffinePoint):
+    """y^2 == x^3 + 3 in Montgomery form; the (0, 0) infinity counts as on
+    the curve."""
+    x2 = field.mont_mul(p.x, p.x)
+    rhs = field.add_mod(field.mont_mul(x2, p.x),
+                        u256.const(bn254.B_MONT, p.x).expand_as(p.x))
+    return field.eq(field.mont_mul(p.y, p.y), rhs) | affine_is_infinity(p)
+
+
+def generator(batch_shape, device, dtype=torch.int32) -> AffinePoint:
+    """The generator (1, 2) in Montgomery form, (16, *batch_shape) each."""
+    shape = (bn254.LIMBS, *batch_shape)
+    like = torch.empty(shape, dtype=dtype, device=device)
+    return AffinePoint(*(u256.const(v, like).expand(shape).clone()
+                         for v in (bn254.GX_MONT, bn254.GY_MONT)))

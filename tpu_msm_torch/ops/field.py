@@ -7,7 +7,9 @@ canonical values, so its results are bit-identical to the JAX cores and to
 the CUDA core (`csrc/bn254.cuh`), which all compute the same residues.
 
 This is the readable reference the kernels are held against, and what the
-kernel wrappers run on CPU tensors; it is not fast. `mont_mul` loops over
+kernel wrappers run on CPU tensors; it is not fast. Beside it, off the MSM's
+path as in the JAX package: `redc`, `to_mont` / `from_mont`, `pow_fixed`,
+`inv_mont`, `batch_inv_mont` and `sqrt_mont`. `mont_mul` loops over
 the limbs in int64 (schoolbook product, then word-by-word REDC with lazy
 carries) and never materialises a 16 x 16 x batch outer product: at the
 `_sides_batched` width of 16 x 32,769 lanes that product would pass 1 GB.
@@ -88,26 +90,121 @@ def mont_mul_const(a, c_int: int):
     return cond_sub_p(s[LIMBS:])
 
 
-def mont_mul(a, b):
-    """a·b·2^-256 mod P, canonical; returns a's dtype.
-
-    The 16x16 product accumulates into 32 int64 columns (each < 2^36). REDC
-    then clears one 16-bit limb per step: u = t_i·(-P^-1) mod 2^16,
-    t += u·P·2^(16i), and t_i's carry moves up; the columns stay < 2^38.
-    The high 16 columns hold (t + mP)/2^256 < 2P."""
-    dtype = a.dtype
-    a = a.to(torch.int64)
-    b = b.to(torch.int64)
-    batch = torch.broadcast_shapes(a.shape[1:], b.shape[1:])
-    t = torch.zeros((2 * LIMBS, *batch), dtype=torch.int64, device=a.device)
-    for i in range(LIMBS):
-        t[i:i + LIMBS].addcmul_(a[i], b)
+def _redc_columns(t):
+    """REDC in place of (32, *batch) int64 columns of a value below
+    P·2^256: clears one 16-bit limb per step, u = t_i·(-P^-1) mod 2^16,
+    t += u·P·2^(16i), and t_i's carry moves up; columns below 2^36 stay
+    below 2^38. The high 16 columns hold (t + mP)/2^256 < 2P; returns its
+    canonical residue."""
     p = u256.const(bn254.P, t)
     for i in range(LIMBS):
         u = (t[i] * bn254.P_INV_NEG_16) & LIMB_MASK
         t[i:i + LIMBS].addcmul_(u, p)
         t[i + 1] += t[i] >> LIMB_BITS
-    return reduce_2p(t[LIMBS:]).to(dtype)
+    return reduce_2p(t[LIMBS:])
+
+
+def mont_mul(a, b):
+    """a·b·2^-256 mod P, canonical; returns a's dtype. The 16x16 product
+    accumulates into 32 int64 columns (each < 2^36), then `_redc_columns`."""
+    return _redc_columns(u256.product_columns(a, b, 2 * LIMBS)).to(a.dtype)
+
+
+def redc(t):
+    """Montgomery reduction of (32, *batch) limbs of t < P·2^256 ->
+    t·2^-256 mod P, canonical (16, *batch), in t's dtype."""
+    return _redc_columns(t.to(torch.int64).clone()).to(t.dtype)
+
+
+def p_limbs(like):
+    """P's limbs, (16, 1, ...) broadcasting against `like`."""
+    return u256.const(bn254.P, like)
+
+
+def const_mont(value: int, device, dtype=torch.int32) -> torch.Tensor:
+    """(16, 1) limbs of an integer constant (the caller supplies the
+    Montgomery form where the consumer expects it, e.g. glv.BETA_MONT)."""
+    return u256.from_const(bn254.int_to_limbs(value, LIMBS), device=device,
+                           dtype=dtype)
+
+
+def mont_mul_many(pairs):
+    """The Montgomery products of a list of (a, b) pairs of one shape, as
+    one stacked mont_mul (`tpu_msm/ops/field.py:132-146`)."""
+    a = torch.stack([p[0] for p in pairs], dim=1)
+    b = torch.stack([p[1] for p in pairs], dim=1)
+    return list(mont_mul(a, b).unbind(1))
+
+
+def mont_sqr(a):
+    return mont_mul(a, a)
+
+
+def to_mont(a):
+    """Standard form (any a < 2^256) -> Montgomery form, a·2^256 mod P."""
+    return mont_mul(a, u256.const(bn254.R2_MOD_P, a))
+
+
+def from_mont(a):
+    """Montgomery form -> standard form, the REDC of a."""
+    return redc(torch.cat([a, torch.zeros_like(a)]))
+
+
+def pow_fixed(a, exponent: int):
+    """a^exponent in Montgomery form for a Python-int exponent: left to
+    right square-and-multiply; a^0 is one."""
+    if exponent == 0:
+        return one_like(a)
+    acc = a
+    for bit in bin(exponent)[3:]:  # after the leading 1
+        acc = mont_sqr(acc)
+        if bit == "1":
+            acc = mont_mul(acc, a)
+    return acc
+
+
+def inv_mont(a):
+    """a^-1 by Fermat, a^(P-2); the inverse of 0 is 0."""
+    return pow_fixed(a, bn254.P - 2)
+
+
+def _scan_mont_mul(a, reverse: bool = False):
+    """Inclusive running products along axis 1 (from the end with
+    `reverse`) by a log-depth Hillis-Steele scan over mont_mul. Products of
+    canonical residues are exact, so any association gives the values of
+    the JAX package's associative_scan."""
+    if reverse:
+        return _scan_mont_mul(a.flip(1)).flip(1)
+    n = a.shape[1]
+    shift = 1
+    while shift < n:
+        ones = one_mont((shift, *a.shape[2:]), a.device, a.dtype)
+        a = mont_mul(a, torch.cat([ones, a[:, :n - shift]], dim=1))
+        shift *= 2
+    return a
+
+
+def batch_inv_mont(a):
+    """Elementwise inverses of (16, N, ...) along N by Montgomery's trick
+    (`tpu_msm/ops/field.py:186-209`): the prefix and suffix products, one
+    Fermat inversion of the total, two products an element. Zeros invert
+    to zero (they count as one in the products)."""
+    zero_mask = u256.is_zero(a)
+    safe = u256.select(zero_mask, one_like(a), a)
+    prefix = _scan_mont_mul(safe)
+    suffix = _scan_mont_mul(safe, reverse=True)
+    total_inv = inv_mont(prefix[:, -1:])
+    ones = one_mont((1, *a.shape[2:]), a.device, a.dtype)
+    before = torch.cat([ones, prefix[:, :-1]], dim=1)  # prod_{j<i}
+    after = torch.cat([suffix[:, 1:], ones], dim=1)    # prod_{j>i}
+    inv = mont_mul(mont_mul(before, after), total_inv.expand_as(a))
+    return u256.select(zero_mask, torch.zeros_like(a), inv)
+
+
+def sqrt_mont(a):
+    """The candidate square root a^((P+1)/4) (P = 3 mod 4); the caller
+    checks that its square is a."""
+    return pow_fixed(a, bn254.SQRT_EXP)
 
 
 def is_zero(a):

@@ -15,7 +15,11 @@ compute one function; the second fed the digits to the TPU's matrix unit in
 two layouts. The kernel counts in shared memory, one block a chunk of one
 window; `plan` picks its regime from the bins the digits can reach (m + 2),
 and `csrc/hist.cu` says what bounds each.
-`digit_hist.launches` and `digit_hist_plain.calls` count the two versions.
+`digit_hist` calls the operator `torch.ops.tpu_msm_torch.digit_hist`
+(ops/library.py) on the (G, n) rows, with the launch plan as its integer
+arguments: the kernel is its CUDA implementation, `digit_hist_plain` its
+CPU one. `digit_hist.launches` (counted by the CUDA implementation) and
+`digit_hist_plain.calls` count the two versions.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from typing import NamedTuple
 import torch
 
 from tpu_msm_torch import _build
+from tpu_msm_torch.ops import library
 
 # csrc/hist.cu's threads a block, and the shared memory of the H100 (sm_90):
 # what one block may take as dynamic shared memory (227 KB), and an SM's
@@ -114,26 +119,56 @@ def digit_hist_plain(digits: torch.Tensor, m: int) -> torch.Tensor:
 digit_hist_plain.calls = 0
 
 
+def _digit_hist_fake(rows, m, held, part_bins, parts, chunk, u16):
+    return torch.empty((rows.shape[0], num_bins(m)), dtype=torch.int32,
+                       device=rows.device)
+
+
+def _digit_hist_cuda(rows, m, held, part_bins, parts, chunk, u16):
+    # The C entry checks the rest of the plan; bins past num_bins(m) would
+    # be written past each row of the output.
+    if rows.dim() != 2:
+        raise ValueError(f"digit_hist rows must be (G, n), got "
+                         f"{tuple(rows.shape)}")
+    g, n = rows.shape
+    nb = num_bins(m)
+    if held > nb:
+        raise ValueError(f"digit_hist plan holds {held} bins of {nb}")
+    out = torch.zeros((g, nb), dtype=torch.int32, device=rows.device)
+    if g and n:
+        _build.launch("tpu_msm_digit_hist", rows.device, rows, g, n, out, nb,
+                      held, part_bins, parts, chunk, u16)
+        digit_hist.launches += 1
+    return out
+
+
+def _digit_hist_cpu(rows, m, held, part_bins, parts, chunk, u16):
+    return digit_hist_plain(rows, m)
+
+
+_DIGIT_HIST = library.define(
+    "digit_hist(Tensor rows, int m, int held, int part_bins, int parts, "
+    "int chunk, int u16) -> Tensor",
+    cuda=_digit_hist_cuda, cpu=_digit_hist_cpu, fake=_digit_hist_fake)
+
+
 def digit_hist(digits: torch.Tensor, m: int,
                big: str | None = None) -> torch.Tensor:
     """Kernel wrapper of digit_hist_plain (same arguments and result), one
     launch for all rows; `big` forces `plan`'s regime for bins that do not
     fit one block as int32 ("split" or "u16")."""
-    if not _build.on_cuda(digits):
-        return digit_hist_plain(digits, m)
-    if digits.dim() not in (1, 2):
-        raise ValueError(f"digits must be (n,) or (G, n), got "
-                         f"{tuple(digits.shape)}")
-    rows = digits if digits.dim() == 2 else digits.reshape(1, -1)
-    g, n = rows.shape
-    nb = num_bins(m)
-    out = torch.zeros((g, nb), dtype=torch.int32, device=digits.device)
-    if g and n:
-        p = plan(g, n, m, _sm_count(digits.device), big)
-        _build.launch("tpu_msm_digit_hist", digits.device, rows, g, n, out,
-                      nb, p.held, p.part_bins, p.parts, p.chunk,
+    launch = (0,) * 5  # the CPU has no launch plan
+    if _build.on_cuda(digits):
+        if digits.dim() not in (1, 2):
+            raise ValueError(f"digits must be (n,) or (G, n), got "
+                             f"{tuple(digits.shape)}")
+        g, n = digits.shape if digits.dim() == 2 else (1, digits.shape[0])
+        if g and n:  # else no launch
+            p = plan(g, n, m, _sm_count(digits.device), big)
+            launch = (p.held, p.part_bins, p.parts, p.chunk,
                       int(p.regime == "u16"))
-        digit_hist.launches += 1
+    rows = digits if digits.dim() == 2 else digits.reshape(1, -1)
+    out = _DIGIT_HIST(rows, m, *launch)
     return out if digits.dim() == 2 else out[0]
 
 
