@@ -64,7 +64,17 @@ C++ engine's result exactly:
     eager `msm_device` bit for bit and against the native engine, with
     equal kernel launches, both timed in turns; an artifact saved at 2^12
     loaded and run in a fresh process that imports only the loader; the
-    per-window route at 2^12 exported and held against eager likewise.
+    per-window route at 2^12 exported and held against eager likewise;
+  * the micro-benches (phase 18, in this process): `tpu_msm_torch.benches.
+    conversion_benchmark` at 2^20 (each converter against a formulation
+    written here, both round trips), `sort_benchmark` part (a) at
+    2^16-2^22 (against np.sort and the stable np.argsort's gather) and part
+    (b) at the tuned 2^20 row (bit for bit `msm_device`'s own
+    `_sorted_scan_inputs` call; a profiled call split into its sort, its
+    gathers and the rest, and the same kernels' share of torch's own in a
+    profiled `msm_device`), and
+    `msm_benchmark` at 2^20 over 2 instances (instance 0 against the native
+    engine); their JSON lines logged as phase 18's lines.
 
 Phase 5 also runs the CLI's `22 1 stream 1` and `20 1 hybrid 1`, each of
 which holds its result against the native engine.
@@ -106,6 +116,12 @@ clocks each); beside it the
 same chain at the latency of one product of the port's own field core (the
 montmul_chain kernel on one lane), and the chain of width-16 and
 width-1 `padd` launches it replaced, timed in the same run.
+
+horner's plain version takes 7-11 s at the main path's (16, 16, 1): each
+shape is held against it once in the run, and a later route that launches
+horner at a shape already checked reuses that verdict (HORNER_VERDICTS);
+its entry in that route's shapes of the JSON line names the phase whose
+verdict it took (`verdict_from`), since it was not checked on its own inputs.
 
 The kernel counters are set to 0 just before each path and read just after.
 Lines on stdout carry their phase and the seconds since the start; then the
@@ -872,6 +888,7 @@ def phase_tail(dev, entries, sh, big):
     wsums[0][3], wsums[2][3] = 0, 0
     want, plain_ms["horner"] = once(lambda: cc.horner_plain(*wsums, c))
     check("horner", [w, 16, 1, f"c {c}"], cc.horner(*wsums, c), want)
+    HORNER_VERDICTS[str([w, 16, 1, c])] = 2
 
     lat = product_latency_ms(dev)
     floor, muls = product_pipe_floor_ms()
@@ -1809,12 +1826,21 @@ class RouteSpy:
             setattr(mod, name, fn)
 
 
+# The shapes ("[W, 16, 1, c]") at which horner has been held against its
+# plain version in this run, each with the phase that did it. The plain
+# horner takes 7-11 s at (16, 16, 1) and c = 16 (255 serial plain adds), so
+# a shape is checked once in the run and its verdict reused after.
+HORNER_VERDICTS = {}
+
+
 def check_route(phase, entries, calls):
     """Each kernel the route launched, at each shape it launched it at,
     against its plain version on the inputs of its first call there,
     bit for bit; the scan on its first 8 steps (a prefix scan's first
-    steps depend on nothing after them). Returns {kernel: [{"shape",
-    "launches"}]}."""
+    steps depend on nothing after them); horner at a shape already
+    checked in the run takes that verdict (HORNER_VERDICTS). Returns
+    {kernel: [{"shape", "launches"}]}, with "verdict_from": the phase
+    whose check a shape reused, where it was not checked on these inputs."""
     from tpu_msm_torch.ops import cuda_curve as cc
     from tpu_msm_torch.ops import hist
 
@@ -1826,7 +1852,12 @@ def check_route(phase, entries, calls):
         path = ({"path": "group" if kernel.endswith("_group") else "thread"}
                 if base in ("padd", "pmadd", "fold_add") else {})
         label = f"{shape}, {rec['launches']} launches"
-        if base == "scan_madd":
+        entry = {"shape": shape, "launches": rec["launches"]}
+        if base == "horner" and shape in HORNER_VERDICTS:
+            entry["verdict_from"] = HORNER_VERDICTS[shape]
+            log(phase, f"horner {label}: checked at this shape in phase "
+                f"{HORNER_VERDICTS[shape]}, its verdict reused")
+        elif base == "scan_madd":
             head = [a[:, :, :8].contiguous() for a in args]
             check(kernel, f"{label}, first 8 steps",
                   cc.scan_madd(*args)[:, :, :8].contiguous(),
@@ -1837,9 +1868,18 @@ def check_route(phase, entries, calls):
         else:
             check(kernel, label, getattr(cc, base)(*args, **path),
                   getattr(cc, f"{base}_plain")(*args))
-        by_kernel.setdefault(kernel, []).append(
-            {"shape": shape, "launches": rec["launches"]})
+            if base == "horner":
+                HORNER_VERDICTS[shape] = phase
+        by_kernel.setdefault(kernel, []).append(entry)
     return by_kernel
+
+
+def shape_list(shapes) -> str:
+    """check_route's shapes for a log line: [shape, launches] each, with
+    the phase whose verdict it took where the check was reused."""
+    return json.dumps({k: [[r["shape"], r["launches"]] + (
+        [f"verdict of phase {r['verdict_from']}"] if "verdict_from" in r
+        else []) for r in v] for k, v in shapes.items()})
 
 
 def phase_stream(dev, entries):
@@ -1914,8 +1954,9 @@ def phase_stream(dev, entries):
     for kernel, recs in shapes.items():
         entries[kernel]["stream_shapes"] = recs
     log(11, f"every kernel of the streamed route == its plain version at "
-        f"each shape it launched it at: "
-        f"{json.dumps({k: [[r['shape'], r['launches']] for r in v] for k, v in shapes.items()})}")
+        f"each shape it launched it at (or an earlier phase's, where "
+        f"marked): "
+        f"{shape_list(shapes)}")
 
     cfg = tpu_msm_torch.select_config(n, dev)
     full = main_shapes(dev, STREAM_LOG)
@@ -2036,8 +2077,8 @@ def phase_golden(dev, entries):
                                  f"timed {sorted(timed)}")
         entries[kernel]["golden_shapes"] = recs
     log(13, f"every kernel of the golden cases == its plain version at each "
-        f"shape it launched it at: "
-        f"{json.dumps({k: [[r['shape'], r['launches']] for r in v] for k, v in shapes.items()})}")
+        f"shape it launched it at (or an earlier phase's, where marked): "
+        f"{shape_list(shapes)}")
     return launches
 
 
@@ -2179,7 +2220,8 @@ def phase_sharded(dev, inputs, expected, entries):
         entries[kernel]["sharded_launches"] = {
             name: counts[kernel] for name, counts in per_run.items()}
     log(15, f"every padd and horner launch of the sharded runs == its plain "
-        f"version at each shape: {json.dumps({k: [[r['shape'], r['launches']] for r in v] for k, v in shapes.items()})}")
+        f"version at each shape (or an earlier phase's, where marked): "
+        f"{shape_list(shapes)}")
 
     # (b) two gloo ranks on one card, timed alone first.
     t0 = time.perf_counter()
@@ -2520,6 +2562,170 @@ def phase_export(dev, inputs, expected):
     return launches
 
 
+
+def _bench_lines(phase, fn, *args, **kw):
+    """fn(*args, **kw) with the JSON lines it prints logged as lines of
+    `phase`, so that the script's own JSON lines stay the only ones on
+    stdout. Returns fn's result."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            return fn(*args, **kw)
+    finally:
+        for line in buf.getvalue().splitlines():
+            log(phase, line)
+
+
+def expect_equal(what, got, want):
+    """numpy arrays equal in dtype, shape and every element, else raise."""
+    if got.dtype != want.dtype or got.shape != want.shape \
+            or not np.array_equal(got, want):
+        raise AssertionError(f"{what}: {got.dtype} {got.shape} differs from "
+                             f"{want.dtype} {want.shape}")
+
+
+BENCH_LOG = 20
+MSM_BENCH_INSTANCES = 2
+
+
+def phase_benches(dev):
+    """The port's micro-benches in this process
+    (tpu_msm_torch/benches/{conversion,sort,msm}_benchmark.py), each output
+    checked here:
+
+    * conversion at 2^20: every converter's output against a formulation
+      written here on the same bytes (np.frombuffer views), the two round
+      trips, and the C ABI path's three from_h2c_bytes (the scalars and the
+      points' strided x and y halves);
+    * sort (a) at 2^16-2^22: the sorted keys equal np.sort of the keys,
+      the payload the one gathered by np.argsort(keys, kind="stable");
+    * msm at 2^20 over 2 instances (the fixture written uncompressed into
+      a temporary TPU_MSM_CACHE_DIR, as phase 5 writes its 2^22 one): the
+      bench holds instance 0's result against the native engine's CPU row
+      and raises on a mismatch; the launches of its calls read, every
+      kernel of the main path among them;
+    * sort (b) at the tuned 2^20 row, last, since it ends with a profile of
+      msm_device: its `_sorted_scan_inputs` output bit for bit equal to the
+      one that msm_device's own call makes on the same inputs."""
+    import tpu_msm_torch
+    from tpu_msm_torch.benches import conversion_benchmark as conv
+    from tpu_msm_torch.benches import msm_benchmark as msmb
+    from tpu_msm_torch.benches import sort_benchmark as sortb
+    from tpu_msm_torch.ops import pippenger
+    from tpu_msm_torch.utils import interop, preprocess
+
+    n = 1 << BENCH_LOG
+    _, out = _bench_lines(18, conv.run, BENCH_LOG, iters=2, device=dev)
+    raw, limbs, points = out["raw"], out["limbs"], out["points"]
+    u16 = np.frombuffer(raw, np.uint8).view("<u2").reshape(n, 16)
+    want_limbs = np.ascontiguousarray(u16.T).astype(np.uint32)
+    expect_equal("the bench's limbs", limbs, want_limbs)
+    expect_equal("from_h2c_bytes", out["from_h2c_bytes"], want_limbs)
+    expect_equal("to_h2c_bytes", out["to_h2c_bytes"],
+                 np.frombuffer(raw, np.uint8).reshape(n, 32))
+    # arkworks: eight u32 words a scalar, the most significant first.
+    ark = np.frombuffer(raw, np.uint8).view("<u4").reshape(n, 8)[:, ::-1]
+    expect_equal("to_ark_u32_limbs", out["to_ark_u32_limbs"],
+                 np.ascontiguousarray(ark))
+    expect_equal("from_ark_u32_limbs", out["from_ark_u32_limbs"], limbs)
+    expect_equal("from_h2c_bytes(to_h2c_bytes(x))",
+                 interop.from_h2c_bytes(interop.to_h2c_bytes(limbs)), limbs)
+    expect_equal("from_ark_u32_limbs(to_ark_u32_limbs(x))",
+                 interop.from_ark_u32_limbs(interop.to_ark_u32_limbs(limbs)),
+                 limbs)
+    pxy = np.frombuffer(points, np.uint8).view("<u2").reshape(n, 2, 16)
+    wire = {"scalars": want_limbs,
+            "points x": np.ascontiguousarray(pxy[:, 0].T).astype(np.uint32),
+            "points y": np.ascontiguousarray(pxy[:, 1].T).astype(np.uint32)}
+    for name, want in wire.items():
+        expect_equal(f"from_h2c_bytes {name}", out[f"from_h2c_bytes {name}"],
+                     want)
+    for got, want in zip(out["msm_best_wire's three from_h2c_bytes"],
+                         wire.values()):
+        expect_equal("msm_best_wire's three from_h2c_bytes", got, want)
+    del out, raw, limbs, points, u16, pxy, wire
+    log(18, f"conversion at 2^{BENCH_LOG}: every converter == its "
+        "formulation here, both round trips exact, the C ABI path's three "
+        "arrays too")
+
+    sorted_out = {}
+    _bench_lines(18, sortb.payload_sort, sortb.LOG_SIZES, repeats=3,
+                 device=dev, outputs=sorted_out)
+    for log_n, ((keys, payload), (got_keys, got_payload)) in \
+            sorted_out.items():
+        expect_equal(f"sort 2^{log_n} keys", got_keys, np.sort(keys))
+        expect_equal(f"sort 2^{log_n} payload", got_payload,
+                     payload[:, np.argsort(keys, kind="stable")])
+    log(18, f"sort (a) at 2^{min(sorted_out)}-2^{max(sorted_out)}: keys == "
+        "np.sort, payload == the stable np.argsort's gather")
+    del sorted_out
+
+    with tempfile.TemporaryDirectory() as cache:
+        path = Path(cache) / "msm_vecs" / (
+            f"msm_{BENCH_LOG}x{MSM_BENCH_INSTANCES}.npz")
+        path.parent.mkdir(parents=True)
+        insts = preprocess.generate_msm_instances(BENCH_LOG,
+                                                  MSM_BENCH_INSTANCES)
+        np.savez(path, num=np.array([len(insts)]), **{
+            f"{k}{i}": a for i, inst in enumerate(insts)
+            for k, a in (("px", inst.px), ("py", inst.py),
+                         ("s", inst.scalars))})
+        del insts
+        saved = os.environ.get("TPU_MSM_CACHE_DIR")
+        os.environ["TPU_MSM_CACHE_DIR"] = cache
+        try:
+            reset_counts()
+            rows = _bench_lines(18, msmb.run, BENCH_LOG, MSM_BENCH_INSTANCES,
+                                device=dev)
+            read_counts(18, MAIN_KERNELS)
+        finally:
+            if saved is None:
+                del os.environ["TPU_MSM_CACHE_DIR"]
+            else:
+                os.environ["TPU_MSM_CACHE_DIR"] = saved
+    device_row, cpu_row = rows
+    if not device_row["equals_native"] or cpu_row["row"] != "cpu":
+        raise AssertionError(f"msm bench rows: {rows}")
+    log(18, f"msm bench at 2^{BENCH_LOG}, {MSM_BENCH_INSTANCES} instances: "
+        f"instance 0 == native engine; median {device_row['median_ms']:.3f} "
+        f"ms on the host clock, {device_row['median_event_ms']:.3f} ms by "
+        f"CUDA events; native engine {cpu_row['ms']:.1f} ms")
+
+    sort_b = {}
+    rec = _bench_lines(18, sortb.main_path_sort, BENCH_LOG, repeats=3,
+                       device=dev, outputs=sort_b)
+    made = []
+    real = pippenger._sorted_scan_inputs
+
+    def spy(*args):
+        res = real(*args)
+        made.append(tuple(t.clone() for t in res))
+        return res
+
+    pippenger._sorted_scan_inputs = spy
+    try:
+        cfg = tpu_msm_torch.select_config(n, dev)
+        tpu_msm_torch.msm_device(*sort_b["inputs"], cfg)
+    finally:
+        pippenger._sorted_scan_inputs = real
+    if not made or any(not bool((a == b).all()) or a.shape != b.shape
+                       for a, b in zip(made[0], sort_b["result"])):
+        raise AssertionError("sort (b): the bench's _sorted_scan_inputs "
+                             "differs from msm_device's first group")
+    inside = rec["in_msm_device"]
+    log(18, f"sort (b) at 2^{BENCH_LOG} ({rec['windows']} windows, "
+        f"{rec['lanes']} lanes) == msm_device's own first group, bit for "
+        f"bit; {rec['ms']:.4f} ms, profiled: sort {rec['sort_ms']:.4f}, "
+        f"gathers {rec['gather_ms']:.4f}, other {rec['other_ms']:.4f} ms in "
+        f"{rec['device_events']} device events; in msm_device sort "
+        f"{inside['sort_ms']:.4f}, gathers {inside['gather_ms']:.4f}, other "
+        f"{inside['other_ms']:.4f} ms, {rec['share_of_torch']:.3f} of torch's "
+        f"own kernels' {rec['msm_device_torch_ms']:.3f} ms there")
+
+
 EC = "tpu_msm_torch/csrc/ec_kernels.cu"
 PC = "tpu_msm/ops/pallas_curve.py"
 # name: (source, the TPU kernels it replaces, the path its launches count)
@@ -2627,6 +2833,8 @@ def main() -> int:
     lap(16)
     export_launches = phase_export(dev, inputs, expected)
     lap(17)
+    phase_benches(dev)
+    lap(18)
     phase_profile(dev, more)
     phase_scan_rows_phases(dev, entries)
     lap(6)

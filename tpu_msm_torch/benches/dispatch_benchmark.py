@@ -34,13 +34,14 @@ without one.
 from __future__ import annotations
 
 import argparse
-import json
 import statistics
 import sys
 import time
 
 import numpy as np
 import torch
+
+from tpu_msm_torch.benches import emit
 
 BASE_POINTS = 512
 POINT_STEP = 0xDEADBEEF
@@ -105,12 +106,6 @@ def _affine(res):
     return pt
 
 
-def _emit(rec: dict) -> None:
-    from tpu_msm_torch.utils import profiling
-
-    print(json.dumps({**rec, "card": profiling.card()}), flush=True)
-
-
 def crossover(log_sizes, repeats: int = 5) -> dict:
     """msm_best's device route against the native engine at each log size
     (module docstring). Returns {"rows": [...], "crossover_log": k or
@@ -141,7 +136,7 @@ def crossover(log_sizes, repeats: int = 5) -> dict:
                    "runs_ms": {k: [t * 1e3 for t in v]
                                for k, v in times.items()}}
             rows.append(rec)
-            _emit(rec)
+            emit(rec, "cuda")
     finally:
         tpu_msm_torch.CPU_THRESHOLD = saved
     cross = None
@@ -150,7 +145,7 @@ def crossover(log_sizes, repeats: int = 5) -> dict:
             break
         cross = rec["log_n"]
     out = {"what": "crossover_summary", "crossover_log": cross}
-    _emit(out)
+    emit(out, "cuda")
     return out
 
 
@@ -193,7 +188,7 @@ def unstreamed(log_sizes) -> list:
         d = None
         torch.cuda.empty_cache()
         out.append(rec)
-        _emit(rec)
+        emit(rec, "cuda")
         if not rec["ok"]:
             break
     return out
@@ -245,7 +240,7 @@ def stream(log_n: int) -> dict:
         times[k].append(host_seconds(runs[k]))
     rec.update({f"{k}_ms": [t * 1e3 for t in v] for k, v in times.items()})
     rec["streamed_profile"] = trace.profile(runs["streamed"])
-    _emit(rec)
+    emit(rec, "cuda")
     return rec
 
 

@@ -79,28 +79,43 @@ def _busy_ms(intervals) -> float:
 def profile(fn) -> dict:
     """Runs fn() once to warm up and once under torch.profiler; returns the
     device's busy and span ms, its idle share and the time per kernel."""
+    return summarize(trace_events(fn))
+
+
+def trace_events(fn, host: bool = False) -> list:
+    """Runs fn() once to warm up and once under torch.profiler (CUDA
+    activity, and the host's ops too where `host`); returns the events of
+    the profiled call's Chrome trace."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as tprofile
 
     fn()
     torch.cuda.synchronize()
-    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host
+                                            else [])
+    with tprofile(activities=activities) as prof:
         fn()
         torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
         with open(path) as f:
-            return summarize(json.load(f)["traceEvents"])
+            return json.load(f)["traceEvents"]
+
+
+def device_events(events) -> list:
+    """The trace's device events (kernels, copies, sets) in order of
+    start."""
+    return sorted((e for e in events if e.get("ph") == "X"
+                   and e.get("cat") in _DEVICE_CATS),
+                  key=lambda e: float(e["ts"]))
 
 
 def summarize(events) -> dict:
     """profile()'s numbers from the events of a Chrome trace (ts and dur
     in µs)."""
     intervals, kernels = [], {}
-    for e in events:
-        if e.get("ph") != "X" or e.get("cat") not in _DEVICE_CATS:
-            continue
+    for e in device_events(events):
         s, d = float(e["ts"]), float(e.get("dur", 0))
         intervals.append((s, s + d))
         key = _DEVICE_CATS[e["cat"]] or _kernel_name(e.get("name", ""))

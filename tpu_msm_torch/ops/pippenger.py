@@ -511,11 +511,13 @@ def _digits(points: AffinePoint, scalar_limbs, cfg: MsmConfig):
                                      + 1), negm, y_neg
 
 
-def _fused_sums(points: AffinePoint, scalar_limbs, cfg: MsmConfig) -> ProjPoint:
-    """Window sums (W, 16, 1) by the fused route: `_window_heavy` over
-    groups of `window_group_size` windows, then `_sides_batched`."""
+def scan_operands(points: AffinePoint, scalar_limbs, cfg: MsmConfig):
+    """What the fused route sorts: (cfg with the lanes, n, digits (W,
+    n_pad), negm (W, n_pad) or None, ppx (8, n_pad), ppy (8, n_pad), or
+    (8, 2·n_pad) y then -y with signed digits), as `_sorted_scan_inputs`
+    takes them a group of windows at a time."""
     points, cfg, n, digits, negm, y_neg = _digits(points, scalar_limbs, cfg)
-    w, n_pad = digits.shape
+    n_pad = digits.shape[1]
     # The padding positions carry the (0, 0) affine infinity: the scan
     # skips it. With signed digits -y follows y, so one gather serves both.
     ppx = _pad_cols(pack_u16_rows(points.x), n_pad - n, 0)
@@ -523,6 +525,14 @@ def _fused_sums(points: AffinePoint, scalar_limbs, cfg: MsmConfig) -> ProjPoint:
     if y_neg is not None:
         ppy = torch.cat([ppy, _pad_cols(pack_u16_rows(y_neg), n_pad - n, 0)],
                         dim=1)
+    return cfg, n, digits, negm, ppx, ppy
+
+
+def _fused_sums(points: AffinePoint, scalar_limbs, cfg: MsmConfig) -> ProjPoint:
+    """Window sums (W, 16, 1) by the fused route: `_window_heavy` over
+    groups of `window_group_size` windows, then `_sides_batched`."""
+    cfg, n, digits, negm, ppx, ppy = scan_operands(points, scalar_limbs, cfg)
+    w, n_pad = digits.shape
     group = window_group_size(w, n_pad, digits.device)
     smalls = [_window_heavy(digits[s:s + group],
                             None if negm is None else negm[s:s + group],
