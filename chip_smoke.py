@@ -10,8 +10,8 @@ C++ engine's result exactly:
 
   * the main path: `tpu_msm_torch.msm_best` at n = 2^12 and n = 2^20 on
     bench-style inputs, with the tuned row `select_config` reads from the
-    autotune table (the fused route: scan_madd and digit_hist over groups
-    of windows, padd, fold_add, window_tail, horner);
+    autotune table (the fused route: scan_layout, scan_madd and digit_hist
+    over groups of windows, padd, fold_add, window_tail, horner);
   * the per-window path: `tpu_msm_torch.msm` at n = 2^20 with 16384 scan
     lanes, once with each segment-start option (pmadd, padd, fold_add,
     digit_hist, window_tail, horner);
@@ -71,14 +71,23 @@ C++ engine's result exactly:
     2^16-2^22 (against np.sort and the stable np.argsort's gather) and part
     (b) at the tuned 2^20 row (bit for bit `msm_device`'s own
     `_sorted_scan_inputs` call; a profiled call split into its sort, its
-    gathers and the rest, and the same kernels' share of torch's own in a
-    profiled `msm_device`), and
+    scan_layout launch and the rest, and the same kernels' share of
+    torch's own in a profiled `msm_device`), and
     `msm_benchmark` at 2^20 over 2 instances (instance 0 against the native
     engine); their JSON lines logged as phase 18's lines.
 
 Phase 5 also runs the CLI's `22 1 stream 1` and `20 1 hybrid 1`, each of
 which holds its result against the native engine.
 
+Phase 2 holds scan_layout (csrc/layout.cu, the sort stage's gather into
+the scan's layout) against its plain version and against the torch
+formulation it replaced (the lane-major copy of the permutation and two
+4-byte column gathers, written here as `replaced_layout`, bit for bit), at
+each shape the paths give it: the tuned 2^20 row, MsmConfig()'s signed
+4096 lanes at 2^20, a streamed 2^22 chunk's group and the 2^12 call; and
+times the three, beside the bound. Phases 11, 15 and 17 hold it on each
+route's own inputs (the streamed and sharded calls through RouteSpy, the
+loaded export artifact through `op_calls`).
 Phase 2 holds the histogram in each of its regimes (ops/hist.py, `plan`)
 against its plain version and times the two regimes for the tuned row's
 65,536 bins (split bins, 16-bit counters) in turns; it holds both kernels
@@ -486,7 +495,7 @@ KERNEL_FUNCTIONS = ("scan_madd_rows_kernel", "scan_madd_rows_totals_kernel",
                     "padd_group_kernel", "padd_kernel", "window_tail_kernel",
                     "horner_kernel", "fold_add_group_kernel",
                     "fold_add_kernel", "digit_hist_kernel",
-                    "montmul_chain_kernel")
+                    "montmul_chain_kernel", "scan_layout_kernel")
 
 
 def phase_build():
@@ -502,10 +511,12 @@ def phase_build():
         if "Compiling entry function" in line or "Function properties" in line:
             # Lines that follow a device function's header are not a kernel's.
             kernel = next((k for k in KERNEL_FUNCTIONS if k in line), None)
-            # digit_hist_kernel<u16>: its mangled template argument.
-            args = re.search(r"digit_hist_kernelILb(\d)E", line)
+            # digit_hist_kernel<u16>, scan_layout_kernel<signed>: the
+            # mangled template argument.
+            args = re.search(r"(digit_hist|scan_layout)_kernelILb(\d)E", line)
             if args:
-                kernel += f"<u16 {args[1]}>"
+                what = "u16" if args[1] == "digit_hist" else "signed"
+                kernel += f"<{what} {args[2]}>"
         elif kernel and ("registers" in line or "spill" in line):
             detail = line.replace("ptxas info    :", "").strip()
             log(1, f"ptxas {kernel}: {detail}")
@@ -703,6 +714,126 @@ def phase_kernels(dev, scalars):
     entries["padd_group"].update(first, other_shapes=others)
     phase_tail(dev, entries, sh, big)
     return entries
+
+
+def layout_work(g, n_pad, row_words, signed):
+    """scan_layout's work: no arithmetic; the permutation, the point-major
+    table and the masks read once, sgx and sgy written once (bytes)."""
+    return {"ops": 0, "bytes": (8 + 64 + signed) * g * n_pad
+            + 4 * row_words * n_pad}
+
+
+def replaced_layout(perm, ppx, ppy, negm, lanes):
+    """The torch formulation scan_layout replaced, for the comparison only:
+    the lane-major copy of the permutation, then one torch.gather of (G, 8,
+    n_pad) 4-byte words each from the planar (8, n_pad) x and (8, n_pad) y,
+    or (8, 2·n_pad) y then -y, whose index takes n_pad more where the mask
+    negates (the -y index sum, with a third gather of the masks)."""
+    import torch
+
+    g, n_pad = perm.shape
+    steps = n_pad // lanes
+    idx = perm.view(g, lanes, steps).transpose(1, 2).reshape(g, 1, n_pad)
+
+    def lay(pp, index):
+        return torch.gather(pp.expand(g, 8, pp.shape[1]), 2,
+                            index.expand(g, 8, n_pad)).view(g, 8, steps,
+                                                            lanes)
+
+    sgx = lay(ppx, idx)
+    if negm is not None:
+        idx = idx + n_pad * torch.gather(negm, 1, idx[:, 0])[:, None]
+    return sgx, lay(ppy, idx)
+
+
+def phase_layout(dev, entries, inputs):
+    """scan_layout at each shape the paths give it, on the sorted digits of
+    that shape: the tuned 2^20 row and MsmConfig()'s defaults (signed, 4096
+    lanes) on the bench inputs (`pippenger.scan_operands`), the first group
+    of a streamed 2^22 chunk (the 2^24 route's) on seeded random digits and
+    words, and the 2^12 call on its bench inputs. At each: the kernel held
+    bit for bit against its plain version and against `replaced_layout`,
+    then the three timed (the replaced one by graph_ms too), with the bound
+    (layout_work)."""
+    import torch
+
+    from tpu_msm_torch import select_config
+    from tpu_msm_torch.ops import cuda_curve as cc
+    from tpu_msm_torch.ops import pippenger
+    from tpu_msm_torch.ops.curve import AffinePoint
+    from tpu_msm_torch.utils import interop
+    from tpu_msm_torch.utils.config import MsmConfig
+
+    check = checker(entries, 2)
+    timed = timer(2)
+
+    def bench_group(log_n, cfg):
+        px, py, sl = interop.limbs_to_device(*inputs[log_n], dev)
+        cfg, _, digits, negm, rows = pippenger.scan_operands(
+            AffinePoint(px, py), sl, cfg)
+        g = pippenger.window_group_size(*digits.shape, dev)
+        return (digits[:g], None if negm is None else negm[:g], rows,
+                cfg.scan_lanes)
+
+    def random_group(log_n):
+        sh = main_shapes(dev, log_n)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        g, n_pad = sh["g"], sh["n"]
+        digits = torch.randint(0, sh["m"] + 1, (g, n_pad), device=dev,
+                               dtype=torch.int32, generator=gen)
+        rows = torch.randint(-(1 << 31), 1 << 31,
+                             (n_pad, 24 if sh["signed"] else 16), device=dev,
+                             dtype=torch.int32, generator=gen)
+        negm = (torch.rand((g, n_pad), device=dev, generator=gen) < 0.5
+                if sh["signed"] else None)
+        return digits, negm, rows, sh["lanes"]
+
+    groups = {"the tuned 2^20 row": bench_group(20, select_config(1 << 20,
+                                                                  dev)),
+              "MsmConfig() at 2^20": bench_group(20, MsmConfig()),
+              "a streamed 2^22 chunk's group": random_group(22),
+              "the 2^12 call": bench_group(12, select_config(1 << 12, dev))}
+    recs = []
+    for what, (digits, negm, rows, lanes) in groups.items():
+        g, n_pad = digits.shape
+        perm = torch.sort(digits, dim=1, stable=True)[1]
+        # The planar tables the replaced formulation gathered from, (8,
+        # n_pad) x and y, (8, 2·n_pad) y then -y with masks.
+        ppx = rows[:, :8].t().contiguous()
+        ppy = (torch.cat([rows[:, 8:16].t(), rows[:, 16:24].t()], dim=1)
+               if negm is not None else rows[:, 8:16].t().contiguous())
+        shape = [g, n_pad, rows.shape[1], lanes]
+        got = cc.scan_layout(perm, rows, negm, lanes)
+        check("scan_layout", f"{shape} ({what})", got,
+              cc.scan_layout_plain(perm, rows, negm, lanes))
+        err = max_abs_err(got, replaced_layout(perm, ppx, ppy, negm, lanes))
+        if err:
+            raise AssertionError(f"scan_layout {shape}: differs from the "
+                                 f"torch formulation it replaced")
+        del got
+        rec = timed("scan_layout", shape,
+                    lambda: cc.scan_layout(perm, rows, negm, lanes),
+                    lambda: cc.scan_layout_plain(perm, rows, negm, lanes),
+                    layout_work(g, n_pad, rows.shape[1], negm is not None))
+        rec["replaced_ms"] = graph_ms(
+            lambda: replaced_layout(perm, ppx, ppy, negm, lanes))
+        rec["what"] = what
+        # Not a bound: the bytes' time were each window to read its 64
+        # bytes of the table a point anew, as the kernel does.
+        anew_ms = 1e3 * ((8 + 64 + 64 + (negm is not None)) * g * n_pad
+                         / HBM_BYTES_PER_S)
+        log(2, f"scan_layout {shape} ({what}): == the replaced torch "
+            f"formulation (bit-identical); kernel {rec['ms']:.4f} ms, "
+            f"replaced {rec['replaced_ms']:.4f} ms (the lane-major copy and "
+            f"the gathers), plain {rec['plain_ms']:.4f} ms; bound "
+            f"{rec['bound_ms']:.4f} ms ({rec['ms'] / rec['bound_ms']:.2f} "
+            f"times it); {anew_ms:.4f} ms to move the bytes with the table "
+            f"read anew each window")
+        recs.append(rec)
+        del perm, ppx, ppy, digits, negm, rows
+    first, *others = recs
+    entries["scan_layout"].update(first, other_shapes=others)
+    torch.cuda.synchronize()
 
 
 # The histogram's two regimes for bins that do not fit one block as int32
@@ -978,14 +1109,15 @@ def counters():
         ("fold_add", cc.fold_add), ("digit_hist", hist.digit_hist),
         ("pmadd", cc.pmadd), ("jac_madd", cc.jac_madd),
         ("jac_add", cc.jac_add), ("scan_madd_rows", cc.scan_madd_rows),
-        ("montmul_chain", cc.montmul_chain))}
+        ("montmul_chain", cc.montmul_chain), ("scan_layout", cc.scan_layout))}
     kernels["padd_group"] = (cc.padd, "group_launches")
     kernels["fold_add_group"] = (cc.fold_add, "group_launches")
     kernels["pmadd_group"] = (cc.pmadd, "group_launches")
     plains = [cc.scan_madd_plain, cc.padd_plain, cc.window_tail_plain,
               cc.horner_plain, cc.fold_add_plain, hist.digit_hist_plain,
               cc.pmadd_plain, cc.jac_madd_plain, cc.jac_add_plain,
-              cc.scan_madd_rows_plain, cc.montmul_chain_plain]
+              cc.scan_madd_rows_plain, cc.montmul_chain_plain,
+              cc.scan_layout_plain]
     return kernels, plains
 
 
@@ -997,8 +1129,8 @@ def reset_counts():
         fn.calls = 0
 
 
-MAIN_KERNELS = ("scan_madd", "padd", "fold_add", "digit_hist", "window_tail",
-                "horner")
+MAIN_KERNELS = ("scan_layout", "scan_madd", "padd", "fold_add", "digit_hist",
+                "window_tail", "horner")
 # Kernels whose wrapper counts a second kernel's launches too: its own are
 # the wrapper's count less the second's.
 SHARED_COUNTS = {"padd": "padd_group", "fold_add": "fold_add_group",
@@ -1081,7 +1213,8 @@ def phase_e2e(dev, inputs, expected):
         .bit_length()}
     paths = {width: cc.kernel_path(width, sms) for width in padd_calls}
     fold_path = cc.kernel_path(sh["w"] * sh["fanout"], sms)
-    want = {"scan_madd": -(-sh["w"] // sh["g"]),
+    want = {"scan_layout": -(-sh["w"] // sh["g"]),
+            "scan_madd": -(-sh["w"] // sh["g"]),
             "digit_hist": -(-sh["w"] // sh["g"]), "window_tail": 1,
             "horner": 1, "padd": sum(padd_calls.values()),
             "padd_group": sum(k for width, k in padd_calls.items()
@@ -1091,9 +1224,10 @@ def phase_e2e(dev, inputs, expected):
         raise AssertionError(f"launches of one msm_device call at 2^20: "
                              f"{one}, expected {want}")
     log(3, f"msm_device n=2^20: G = {sh['g']} of {sh['w']} windows a scan "
-        f"and histogram launch; launches {json.dumps(one)} (scan "
-        f"{one['scan_madd']}, digit_hist {one['digit_hist']}, padd "
-        f"{one['padd']}: {one['padd'] - one['padd_group']} padd_kernel, "
+        f"and histogram launch; launches {json.dumps(one)} (layout "
+        f"{one['scan_layout']}, scan {one['scan_madd']}, digit_hist "
+        f"{one['digit_hist']}, padd {one['padd']}: "
+        f"{one['padd'] - one['padd_group']} padd_kernel, "
         f"{one['padd_group']} padd_group_kernel, by width "
         f"{json.dumps({w: [k, paths[w]] for w, k in padd_calls.items()})}; "
         f"fold_add {fold_path}; tail {one['window_tail'] + one['horner']})")
@@ -1668,8 +1802,8 @@ def phase_glv(dev, inputs, expected):
         if got != expected[log_n]:
             raise AssertionError(f"GLV msm n=2^{log_n}: {got} != native "
                                  f"{expected[log_n]}")
-        read_counts(8, ("scan_madd", "padd", "digit_hist", "window_tail",
-                        "horner"))
+        read_counts(8, ("scan_layout", "scan_madd", "padd", "digit_hist",
+                        "window_tail", "horner"))
         log(8, f"GLV msm n=2^{log_n} == native engine (affine, exact)")
         dpx, dpy, dsl = interop.limbs_to_device(px, py, sl, dev)
         times = {False: [], True: []}
@@ -1739,7 +1873,8 @@ def phase_options(dev, inputs, expected):
             raise AssertionError(f"msm_device n=2^{log_n} {change}: {got} != "
                                  f"the tuned row's {expected[log_n]}")
         hist_path = cfg.segment_starts in ("hist", "hist_cols")
-        one = read_counts(10, ("scan_madd", "padd", "window_tail", "horner")
+        one = read_counts(10, ("scan_layout", "scan_madd", "padd",
+                               "window_tail", "horner")
                           + (("digit_hist",) if hist_path else ()))
         groups = -(-cfg.num_windows() // pippenger.window_group_size(
             cfg.num_windows(), 1 << log_n, dev))
@@ -1765,8 +1900,9 @@ STREAM_LOG = 24
 
 class RouteSpy:
     """While active, wraps the kernel wrappers the routes call
-    (pippenger's imports of cuda_curve's scan_madd, padd, pmadd, fold_add,
-    window_tail and horner; hist.digit_hist, which the segment starts call)
+    (pippenger's imports of cuda_curve's scan_layout, scan_madd, padd,
+    pmadd, fold_add, window_tail and horner; hist.digit_hist, which the
+    segment starts call)
     and records, for each kernel and input shape, the launches its calls
     made and a copy of the first call's inputs. padd, pmadd and fold_add
     are recorded under the kernel their rule took (padd or padd_group, ...).
@@ -1776,8 +1912,8 @@ class RouteSpy:
         from tpu_msm_torch.ops import hist, pippenger
 
         self.targets = [(pippenger, name) for name in (
-            "scan_madd", "padd", "pmadd", "fold_add", "window_tail",
-            "horner")]
+            "scan_layout", "scan_madd", "padd", "pmadd", "fold_add",
+            "window_tail", "horner")]
         self.targets.append((hist, "digit_hist"))
         self.calls = {}  # (kernel, shape) -> {"launches": k, "args": ...}
 
@@ -1796,22 +1932,13 @@ class RouteSpy:
             setattr(self._parts[2], attr, value)
 
         def __call__(self, *args, **kw):
-            import torch
-
             route, name, fn = self._parts
             before = (fn.launches, getattr(fn, "group_launches", 0))
             out = fn(*args, **kw)
             launched = fn.launches - before[0]
             group = getattr(fn, "group_launches", 0) - before[1]
             kernel = f"{name}_group" if group else name
-            shape = [*args[0].shape] + [a for a in args[1:]
-                                        if not isinstance(a, torch.Tensor)]
-            key = (kernel, str(shape))
-            if key not in route.calls:  # copy the first call's inputs only
-                route.calls[key] = {"launches": 0, "args": tuple(
-                    a.clone() if isinstance(a, torch.Tensor) else a
-                    for a in args)}
-            route.calls[key]["launches"] += launched
+            record(route.calls, kernel, args, launched)
             return out
 
     def __enter__(self):
@@ -1824,6 +1951,49 @@ class RouteSpy:
     def __exit__(self, *exc):
         for mod, name, fn in self.saved:
             setattr(mod, name, fn)
+
+
+def record(calls, kernel, args, launched):
+    """Adds a call of `kernel` on `args` that made `launched` launches to
+    `calls`, {(kernel, shape): {"launches", "args"}}: the shape is the first
+    operand's and the call's other arguments but tensors and None; the
+    first call at a shape keeps a copy of its arguments."""
+    import torch
+
+    shape = [*args[0].shape] + [a for a in args[1:] if a is not None
+                                and not isinstance(a, torch.Tensor)]
+    key = (kernel, str(shape))
+    if key not in calls:  # copy the first call's inputs only
+        calls[key] = {"launches": 0, "args": tuple(
+            a.clone() if isinstance(a, torch.Tensor) else a for a in args)}
+    calls[key]["launches"] += launched
+
+
+def op_calls(fn, name):
+    """(fn(), the calls of operator tpu_msm_torch::<name> it made, recorded
+    as RouteSpy records a wrapper's, with the launches the wrapper's
+    counter gained): a loaded export program calls the operators, not the
+    wrappers RouteSpy replaces, so a dispatch mode sees them here."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from tpu_msm_torch.ops import cuda_curve as cc
+
+    op = getattr(torch.ops.tpu_msm_torch, name).default
+    counter = getattr(cc, name)
+    calls = {}
+
+    class Spy(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            before = counter.launches
+            out = func(*args, **(kwargs or {}))
+            if func is op:
+                record(calls, name, args, counter.launches - before)
+            return out
+
+    with Spy():
+        out = fn()
+    return out, calls
 
 
 # The shapes ("[W, 16, 1, c]") at which horner has been held against its
@@ -1840,13 +2010,15 @@ def check_route(phase, entries, calls):
     steps depend on nothing after them); horner at a shape already
     checked in the run takes that verdict (HORNER_VERDICTS). Returns
     {kernel: [{"shape", "launches"}]}, with "verdict_from": the phase
-    whose check a shape reused, where it was not checked on these inputs."""
+    whose check a shape reused, where it was not checked on these inputs.
+    Logs the seconds the checks took, by kernel."""
     from tpu_msm_torch.ops import cuda_curve as cc
     from tpu_msm_torch.ops import hist
 
     check = checker(entries, phase)
-    by_kernel = {}
+    by_kernel, seconds = {}, {}
     for (kernel, shape), rec in sorted(calls.items()):
+        t0 = time.perf_counter()
         args = rec["args"]
         base = kernel.removesuffix("_group")
         path = ({"path": "group" if kernel.endswith("_group") else "thread"}
@@ -1871,6 +2043,9 @@ def check_route(phase, entries, calls):
             if base == "horner":
                 HORNER_VERDICTS[shape] = phase
         by_kernel.setdefault(kernel, []).append(entry)
+        seconds[kernel] = seconds.get(kernel, 0) + time.perf_counter() - t0
+    log(phase, f"the route's checks took, by kernel (s): "
+        f"{json.dumps({k: round(v, 2) for k, v in seconds.items()})}")
     return by_kernel
 
 
@@ -1922,7 +2097,8 @@ def phase_stream(dev, entries):
         "msm_best 2^24 (streamed)"))
     peak = torch.cuda.max_memory_allocated()
     launches = read_counts(11, MAIN_KERNELS)
-    want = {"scan_madd": chunks * groups, "window_tail": chunks, "horner": 1}
+    want = {"scan_layout": chunks * groups, "scan_madd": chunks * groups,
+            "window_tail": chunks, "horner": 1}
     if tpu_msm_torch.select_config(1 << chunk_log, dev).segment_starts in (
             "hist", "hist_cols"):
         want["digit_hist"] = chunks * groups
@@ -2011,7 +2187,8 @@ def phase_hybrid(dev, inputs, expected):
             f"hybrid share {share:.4f}"))
         log(12, f"msm_hybrid n=2^20 share {share:.4f} == native engine "
             f"(affine, exact) in {dt:.4f} s")
-    read_counts(12, ("scan_madd", "padd", "window_tail", "horner"))
+    read_counts(12, ("scan_layout", "scan_madd", "padd", "window_tail",
+                     "horner"))
     alone = [db.host_seconds(lambda: expected_is(
         tpu_msm_torch.msm((px, py), sl, device=dev), expected[20], "msm"))
         for _ in range(3)]
@@ -2165,8 +2342,9 @@ def phase_sharded(dev, inputs, expected, entries):
     on cuda:0 in both collectives, each equal to the native engine, D = 1
     byte-identical to msm_device, each timed in turns with msm_device by
     CUDA events, the counters set to 0 before each run and read after it; (e)
-    every padd, padd_group and horner launch of those runs recorded by
-    shape and held against its plain version on that call's inputs; (b)
+    every scan_layout, padd, padd_group and horner launch of those runs
+    recorded by shape and held against its plain version on that call's
+    inputs; (b)
     two processes of `tpu_msm_torch.parallel.distributed` over gloo, both
     on cuda:0, at 2^21 (2^20 points a rank), in both collectives, their
     digests equal to each other and to in-process msm_sharded over two
@@ -2186,7 +2364,8 @@ def phase_sharded(dev, inputs, expected, entries):
     cfg = tpu_msm_torch.select_config(1 << 20, dev)
     ref = tpu_msm_torch.msm_device(*d, cfg)
     spy = RouteSpy()
-    spy.targets = [(m, k) for m, k in spy.targets if k in ("padd", "horner")]
+    spy.targets = [(m, k) for m, k in spy.targets
+                   if k in ("scan_layout", "padd", "horner")]
     runs, per_run = {}, {}
     for shards in SHARDS:
         for coll in sharded.COLLECTIVES:
@@ -2219,9 +2398,10 @@ def phase_sharded(dev, inputs, expected, entries):
         entries[kernel]["sharded_shapes"] = shapes.get(kernel, [])
         entries[kernel]["sharded_launches"] = {
             name: counts[kernel] for name, counts in per_run.items()}
-    log(15, f"every padd and horner launch of the sharded runs == its plain "
-        f"version at each shape (or an earlier phase's, where marked): "
-        f"{shape_list(shapes)}")
+    entries["scan_layout"]["sharded_shapes"] = shapes["scan_layout"]
+    log(15, f"every scan_layout, padd and horner launch of the sharded runs "
+        f"== its plain version at each shape (or an earlier phase's, where "
+        f"marked): {shape_list(shapes)}")
 
     # (b) two gloo ranks on one card, timed alone first.
     t0 = time.perf_counter()
@@ -2424,7 +2604,7 @@ print(json.dumps(res))
 """
 
 
-def phase_export(dev, inputs, expected):
+def phase_export(dev, inputs, expected, entries):
     """bindings.export on the card. At 2^12 two artifacts, the default
     row's (fused) and the per-window route's (EXPORT_WINDOW_LANES lanes),
     loaded and run in a fresh process (FRESH_LOAD) on inputs saved beside
@@ -2433,9 +2613,11 @@ def phase_export(dev, inputs, expected):
     process runs, at 2^20 with the tuned row on bench inputs: export_msm on
     cuda:0, saved to a temporary directory, loaded in this process and held
     against eager msm_device (bit for bit, and the launches of one call of
-    each) and the native engine (affine); after it ends, the two timed in
-    turns by CUDA events, EXPORT_TURNS calls each. Returns the launches of
-    one call of the loaded 2^20 program."""
+    each) and the native engine (affine), and each scan_layout launch of
+    the loaded program held against the plain version on its own inputs
+    (`op_calls`); after the fresh process ends, the two timed in turns by
+    CUDA events, EXPORT_TURNS calls each. Returns the launches of one call
+    of the loaded 2^20 program."""
     import torch
 
     import tpu_msm_torch
@@ -2489,6 +2671,11 @@ def phase_export(dev, inputs, expected):
             pt, launches = _loaded_and_eager(17, "n=2^20", fn, args, cfg,
                                              MAIN_KERNELS)
             expected_is(pt, expected[20], "the loaded program at 2^20")
+            _, calls = op_calls(lambda: fn(*args), "scan_layout")
+            shapes = check_route(17, entries, calls)
+            entries["scan_layout"]["export_shapes"] = shapes["scan_layout"]
+            log(17, f"every scan_layout launch of the loaded program == its "
+                f"plain version on its own inputs: {shape_list(shapes)}")
             out, err = proc.communicate(timeout=300)
         finally:
             if proc.poll() is None:
@@ -2609,7 +2796,8 @@ def phase_benches(dev):
       kernel of the main path among them;
     * sort (b) at the tuned 2^20 row, last, since it ends with a profile of
       msm_device: its `_sorted_scan_inputs` output bit for bit equal to the
-      one that msm_device's own call makes on the same inputs."""
+      one that msm_device's own call makes on the same inputs; its split
+      into the sort, the scan_layout launch and the rest."""
     import tpu_msm_torch
     from tpu_msm_torch.benches import conversion_benchmark as conv
     from tpu_msm_torch.benches import msm_benchmark as msmb
@@ -2719,11 +2907,12 @@ def phase_benches(dev):
     log(18, f"sort (b) at 2^{BENCH_LOG} ({rec['windows']} windows, "
         f"{rec['lanes']} lanes) == msm_device's own first group, bit for "
         f"bit; {rec['ms']:.4f} ms, profiled: sort {rec['sort_ms']:.4f}, "
-        f"gathers {rec['gather_ms']:.4f}, other {rec['other_ms']:.4f} ms in "
-        f"{rec['device_events']} device events; in msm_device sort "
-        f"{inside['sort_ms']:.4f}, gathers {inside['gather_ms']:.4f}, other "
-        f"{inside['other_ms']:.4f} ms, {rec['share_of_torch']:.3f} of torch's "
-        f"own kernels' {rec['msm_device_torch_ms']:.3f} ms there")
+        f"scan_layout {rec['layout_ms']:.4f}, other {rec['other_ms']:.4f} ms "
+        f"in {rec['device_events']} device events; in msm_device sort "
+        f"{inside['sort_ms']:.4f}, scan_layout {inside['layout_ms']:.4f}, "
+        f"other {inside['other_ms']:.4f} ms; the call's torch kernels "
+        f"{rec['share_of_torch']:.3f} of torch's own kernels' "
+        f"{rec['msm_device_torch_ms']:.3f} ms there")
 
 
 EC = "tpu_msm_torch/csrc/ec_kernels.cu"
@@ -2746,6 +2935,9 @@ SOURCES = {
     "scan_madd_rows": (EC, f"{PC}:565", "cli"),
     "montmul_chain": ("tpu_msm_torch/csrc/montmul.cu",
                       "benches/montmul_benchmark.py:100", "roofline"),
+    # No pallas_call: the JAX package's sort stage, left to XLA ("rank").
+    "scan_layout": ("tpu_msm_torch/csrc/layout.cu",
+                    "tpu_msm/ops/pippenger.py:289", "main"),
 }
 PATHS = {"main": "msm_best at 2^12 and 2^20",
          "per_window": "msm at 2^20, 16384 scan lanes, both segment starts",
@@ -2792,6 +2984,7 @@ def main() -> int:
     entries = phase_kernels(dev, inputs[20][2])
     entries.update(phase_new_kernels(dev))
     phase_window_kernels(dev, entries)
+    phase_layout(dev, entries, inputs)
     lap(2)
     expected = {}
     for log_n, (px, py, sl) in inputs.items():
@@ -2831,7 +3024,7 @@ def main() -> int:
     lap(15)
     phase_embed(dev, inputs, expected)
     lap(16)
-    export_launches = phase_export(dev, inputs, expected)
+    export_launches = phase_export(dev, inputs, expected, entries)
     lap(17)
     phase_benches(dev)
     lap(18)

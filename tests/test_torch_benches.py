@@ -20,9 +20,11 @@ benchmark.py) against the JAX package on the same seeded inputs, on the CPU
   JAX function takes one window and returns (8, steps, lanes / 128, 128)
   uint32 and (n_pad,) uint32, so window g's port block reshaped to (8,
   steps, lanes) holds the JAX block reshaped the same way, as u32 bit
-  patterns. The JAX function takes y already negated where the digit is
-  (ppy_w); the port takes (8, 2·n_pad) y then -y and the masks. 128 lanes
-  are the least the JAX layout takes (lanes / 128 rows of 128).
+  patterns. The JAX function takes (8, n_pad) x words and y words already
+  negated where the digit is (ppy_w); the port takes `scan_operands`'
+  point-major table, (n_pad, 16) [x | y] or (n_pad, 24) [x | y | -y], and
+  the masks. 128 lanes are the least the JAX layout takes (lanes / 128 rows
+  of 128).
 * MSM: at `--log-size 8 --instances 2`, with TPU_MSM_CACHE_DIR on
   tmp_path, the instances equal the JAX package's
   `get_or_create_msm_instances(8, 2)` bit for bit, and the bench's CPU
@@ -219,19 +221,23 @@ def test_main_path_sort_matches_jax(jax, monkeypatch, signed):
                                         outputs=outputs)
     assert (rec["windows"], rec["n_pad"], rec["lanes"], rec["steps"]) == (
         g, n, lanes, n // lanes)
-    digits, negm, ppx, ppy, _, steps = outputs["args"]
-    assert (negm is not None) == signed
+    digits, negm, rows, args_lanes = outputs["args"]
+    steps = n // lanes
+    assert (negm is not None) == signed and args_lanes == lanes
+    assert rows.shape == (n, 24 if signed else 16)
     sorted_digits, sgx, sgy = outputs["result"]
     assert sgx.shape == sgy.shape == (g, 8, steps, lanes)
     u32 = lambda t: t.numpy().view(np.uint32)  # noqa: E731
+    words = u32(rows).T  # (16 or 24, n): x, y, then -y
     for w in range(g):
-        y = u32(ppy[:, :n])
+        y = words[8:16]
         if signed:
-            y = np.where(negm[w].numpy()[None, :], u32(ppy[:, n:]), y)
+            y = np.where(negm[w].numpy()[None, :], words[16:24], y)
         for impl in ("payload", "rank"):
             jd, jx, jy = jpippenger._sorted_scan_inputs(
-                jnp.asarray(u32(digits[w])), jnp.asarray(u32(ppx)),
-                jnp.asarray(y), lanes, steps, impl)
+                jnp.asarray(u32(digits[w])),
+                jnp.asarray(np.ascontiguousarray(words[:8])),
+                jnp.asarray(np.ascontiguousarray(y)), lanes, steps, impl)
             assert np.array_equal(u32(sorted_digits[w]), np.asarray(jd))
             assert np.array_equal(u32(sgx[w]),
                                   np.asarray(jx).reshape(8, steps, lanes))
@@ -254,25 +260,29 @@ def test_main_path_sort_splits_a_trace_by_launching_op():
 
     events = [
         op("aten::sort", 0, 100, 1), op("aten::empty", 10, 5, 2),
-        op("aten::reshape", 120, 20, 3), op("aten::gather", 150, 30, 4),
-        op("aten::gather", 200, 30, 5),
+        op("aten::reshape", 120, 20, 3),
+        op("tpu_msm_torch::scan_layout", 150, 80, 4),
+        op("aten::empty", 160, 5, 5),
+        # The layout kernel's launch: a runtime call inside the operator,
+        # whose correlation the kernel carries (it is launched by ctypes,
+        # with no External id of an aten op).
         {"ph": "X", "cat": "cuda_runtime", "name": "cudaLaunchKernel",
          "ts": 50, "dur": 2, "args": {"correlation": 77}},
+        {"ph": "X", "cat": "cuda_runtime", "name": "cudaLaunchKernel",
+         "ts": 200, "dur": 2, "args": {"correlation": 78}},
         dev("radix", 1000, 300, **{"External id": 2}),
         dev("Memset (Device)", 1300, 10, cat="gpu_memset", correlation=77),
         dev("copy", 1400, 40, **{"External id": 3}),
-        dev("gather", 1500, 500, **{"External id": 4}),
-        dev("gather", 2000, 600, **{"External id": 5}),
+        dev("scan_layout_kernel", 1500, 500, correlation=78),
     ]
     parts = sort_benchmark.call_parts(events)
     assert [(p[0], p[3]) for p in parts] == [
         ("radix", "sort_ms"), ("Memset (Device)", "sort_ms"),
-        ("copy", "other_ms"), ("gather", "gather_ms"),
-        ("gather", "gather_ms")]
+        ("copy", "other_ms"), ("scan_layout_kernel", "layout_ms")]
     assert sort_benchmark.split(parts) == pytest.approx(
-        {"sort_ms": 0.31, "gather_ms": 1.1, "other_ms": 0.04})
-    names = ["digits", "radix", "gather", "radix", "Memset (Device)",
-             "copy", "gather", "gather", "scan"]
+        {"sort_ms": 0.31, "layout_ms": 0.5, "other_ms": 0.04})
+    names = ["digits", "radix", "scan_layout_kernel", "radix",
+             "Memset (Device)", "copy", "scan_layout_kernel", "scan"]
     assert sort_benchmark.find_run(names, [p[0] for p in parts]) == 3
     with pytest.raises(RuntimeError, match="not occur as a run"):
         sort_benchmark.find_run(names[:-2], [p[0] for p in parts])

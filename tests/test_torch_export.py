@@ -128,8 +128,9 @@ def test_export_default_device_is_the_card(monkeypatch):
 
 def _op_cases():
     """Small CPU arguments for every operator: u16 limb rows (packed u32
-    words for the scan), the launch arguments as the wrappers pass them on
-    the CPU; horner at W = 1 too, where the plain result is the input."""
+    words for the scan and the layout), the launch arguments as the
+    wrappers pass them on the CPU; horner at W = 1 too, where the plain
+    result is the input; the layout with and without masks."""
     rng = np.random.RandomState(11)
 
     def rows(*shape):
@@ -143,6 +144,8 @@ def _op_cases():
     e = [rows(16, 4) for _ in range(6)]
     digits = torch.from_numpy(rng.randint(0, 10, size=(2, 50))
                               .astype(np.int32))
+    perm = torch.from_numpy(np.stack([rng.permutation(12) for _ in range(2)]))
+    negm = torch.from_numpy(rng.rand(2, 12) < 0.5)
     return [
         ("scan_madd", (words(2, 8, 3, 4), words(2, 8, 3, 4))),
         ("scan_madd", (words(8, 3, 4), words(8, 3, 4))),
@@ -157,6 +160,8 @@ def _op_cases():
         ("scan_madd_rows", (rows(16, 5, 4), rows(16, 5, 4), 2)),
         ("montmul_chain", (rows(16, 4), rows(16, 4), 2, 1, 2)),
         ("digit_hist", (digits, 8, 0, 0, 0, 0, 0)),
+        ("scan_layout", (perm, words(12, 24), negm, 4)),
+        ("scan_layout", (perm, words(12, 16), None, 3)),
     ]
 
 

@@ -130,6 +130,7 @@ def load() -> ctypes.CDLL:
                 "tpu_msm_jac_add": [vp] * 9 + [i64, vp],
                 "tpu_msm_scan_madd_rows": [vp] * 6 + [i32, i32, i32, vp],
                 "tpu_msm_montmul_chain": [vp] * 3 + [i64, i32, i32, i32, vp],
+                "tpu_msm_scan_layout": [vp] * 5 + [i32, i64, i32, vp],
             }
             for name, argtypes in signatures.items():
                 fn = getattr(lib, name)
@@ -153,15 +154,17 @@ def on_cuda(*tensors) -> bool:
     return True
 
 
-def launch(name: str, device, *args) -> None:
+def launch(name: str, device, *args, dtypes=(torch.int32,)) -> None:
     """Call C entry `name` on `device`'s current stream. Tensors pass as
-    their data pointers, after checking that each is a contiguous int32
-    tensor on `device`; a non-zero return (cudaGetLastError) raises."""
+    their data pointers, after checking that each is a contiguous tensor on
+    `device` of one of `dtypes` (int32 alone unless the caller names more);
+    None passes as a null pointer. A non-zero return (cudaGetLastError)
+    raises."""
     for t in args:
         if isinstance(t, torch.Tensor):
-            if t.dtype != torch.int32:
-                raise TypeError(f"kernel operands must be int32, got "
-                                f"{t.dtype}")
+            if t.dtype not in dtypes:
+                raise TypeError(f"kernel operands must be one of {dtypes}, "
+                                f"got {t.dtype}")
             if not t.is_contiguous():
                 raise ValueError("kernel operands must be contiguous")
             if t.device != device:

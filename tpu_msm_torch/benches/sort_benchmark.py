@@ -19,14 +19,14 @@ on the card: 16 windows of c = 16, one group, 8192 lanes) on bench-style
 inputs (`dispatch_benchmark.tiled_inputs`), as `_fused_sums` hands it the
 first group of windows (`pippenger.scan_operands`, `window_group_size`).
 The whole call is timed as in (a). On the card one call is then profiled
-(`cli.trace`, with the host's ops) and its device time split by the aten
-op that launched each kernel: `aten::sort`, `aten::gather` (the packed
-x and y rows, and the masks where the digits are signed), and the rest
-(the copy of the permutation into lane-major order, the -y index sum).
-Then one `msm_device` call at the same inputs is profiled: the call's
-kernels, found there as the same run of names, give the same split inside
-msm_device, and their share of torch's own kernels' device ms in that
-profile.
+(`cli.trace`, with the host's ops) and its device time split by the op
+that launched each kernel: `aten::sort`, the `tpu_msm_torch::scan_layout`
+operator (the scan_layout kernel, which gathers the sorted points' rows
+into the scan's layout), and the rest. Then one `msm_device` call at the
+same inputs is profiled: the call's kernels, found there as the same run
+of names, give the same split inside msm_device, and the call's own torch
+kernels (the sort's) give their share of torch's own kernels' device ms
+in that profile.
 
 One JSON line a measurement, with the card's name and power limit. Runs
 on the card unless given `--device cpu`, and raises without one.
@@ -47,8 +47,8 @@ from tpu_msm_torch.utils import interop
 LOG_SIZES = (16, 18, 20, 22)
 PAYLOAD_ROWS = 32
 SEED = 0  # the JAX script's RandomState(0)
-# The aten ops whose kernels part (b) times apart; the rest is "other_ms".
-PARTS = {"aten::sort": "sort_ms", "aten::gather": "gather_ms"}
+# The ops whose kernels part (b) times apart; the rest is "other_ms".
+PARTS = {"aten::sort": "sort_ms", "tpu_msm_torch::scan_layout": "layout_ms"}
 
 
 def sort_inputs(log_sizes):
@@ -116,8 +116,8 @@ def payload_sort(log_sizes=LOG_SIZES, repeats: int = 3, device=None,
 def main_path_operands(log_n: int = 20, device=None, cfg=None):
     """The first window group's `_sorted_scan_inputs` arguments at
     2^log_n bench-style points: (args, cfg, (px, py, sl)) with args =
-    (digits, negm, ppx, ppy, lanes, steps), cfg `select_config`'s row (or
-    the one given) with the scan lanes set, and the input limb tensors."""
+    (digits, negm, rows, lanes), cfg `select_config`'s row (or the one
+    given) with the scan lanes set, and the input limb tensors."""
     from tpu_msm_torch.benches.dispatch_benchmark import tiled_inputs
     from tpu_msm_torch.ops import pippenger
     from tpu_msm_torch.ops.curve import AffinePoint
@@ -128,19 +128,18 @@ def main_path_operands(log_n: int = 20, device=None, cfg=None):
     px, py, sl, _ = tiled_inputs(n)
     px, py, sl = interop.limbs_to_device(px, py, sl, device)
     cfg = cfg or select_config(n, device)
-    cfg, _, digits, negm, ppx, ppy = pippenger.scan_operands(
+    cfg, _, digits, negm, rows = pippenger.scan_operands(
         AffinePoint(px, py), sl, cfg)
     w, n_pad = digits.shape
     g = pippenger.window_group_size(w, n_pad, device)
-    lanes = cfg.scan_lanes
-    args = (digits[:g], None if negm is None else negm[:g], ppx, ppy,
-            lanes, n_pad // lanes)
+    args = (digits[:g], None if negm is None else negm[:g], rows,
+            cfg.scan_lanes)
     return args, cfg, (px, py, sl)
 
 
 def call_parts(events) -> list:
     """The device events of a trace taken with the host's ops, in order:
-    [(name, cat, ms, part)], part the PARTS key of the outermost aten op
+    [(name, cat, ms, part)], part the PARTS value of the outermost op
     whose host span holds the op that launched the event ("other_ms" for
     any other op). The launching op is the one with the event's External
     id, else the runtime call with its correlation."""
@@ -196,8 +195,9 @@ def main_path_sort(log_n: int = 20, repeats: int = 3, device=None, cfg=None,
 
     device = interop.resolve_device(device)
     args, cfg, inputs = main_path_operands(log_n, device, cfg)
-    digits, _, _, _, lanes, steps = args
+    digits, _, _, lanes = args
     g, n_pad = digits.shape
+    steps = n_pad // lanes
 
     def call():
         return pippenger._sorted_scan_inputs(*args)
@@ -221,7 +221,9 @@ def main_path_sort(log_n: int = 20, repeats: int = 3, device=None, cfg=None,
                   for p, e in zip(parts, dev[i:])]
         prof = trace.summarize(events)
         torch_ms, torch_launches = prof["kernels"]["torch"]
-        kernels_ms = sum(ms for _, cat, ms, _ in inside if cat == "kernel")
+        # torch's own kernels of the call (the sort's; not scan_layout's).
+        kernels_ms = sum(ms for name, cat, ms, _ in inside if cat == "kernel"
+                         and trace.kernel_name(name) == "torch")
         rec.update(in_msm_device=split(inside),
                    msm_device_torch_ms=torch_ms,
                    msm_device_torch_launches=torch_launches,

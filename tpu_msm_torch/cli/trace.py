@@ -46,7 +46,7 @@ KERNELS = ("scan_madd_kernel", "scan_madd_rows_kernel",
            "padd_kernel", "padd_group_kernel", "window_tail_kernel",
            "horner_kernel", "pmadd_kernel", "pmadd_group_kernel",
            "fold_add_kernel", "fold_add_group_kernel", "jac_madd_kernel",
-           "jac_add_kernel", "digit_hist_kernel")
+           "jac_add_kernel", "digit_hist_kernel", "scan_layout_kernel")
 _DEVICE_CATS = {"kernel": None, "gpu_memcpy": "copies", "gpu_memset": "copies"}
 
 ROUTES = {"rule": pippenger.window_sums,
@@ -60,7 +60,8 @@ def msm_on_route(px, py, scalar_limbs, cfg: MsmConfig, route: str) -> ProjPoint:
     return pippenger.horner_fold(wsums, cfg.window_bits)
 
 
-def _kernel_name(name: str) -> str:
+def kernel_name(name: str) -> str:
+    """The port's kernel a device event's name names, else "torch"."""
     for k in KERNELS:
         if re.search(rf"(?<!\w){k}(?!\w)", name):
             return k
@@ -118,7 +119,7 @@ def summarize(events) -> dict:
     for e in device_events(events):
         s, d = float(e["ts"]), float(e.get("dur", 0))
         intervals.append((s, s + d))
-        key = _DEVICE_CATS[e["cat"]] or _kernel_name(e.get("name", ""))
+        key = _DEVICE_CATS[e["cat"]] or kernel_name(e.get("name", ""))
         ms, count = kernels.get(key, (0.0, 0))
         kernels[key] = (ms + d / 1e3, count + 1)
     if not intervals:

@@ -28,6 +28,9 @@ There is no fallback from one to the other.
                   prefix kernels
   montmul_chain   montmul_chain_kernel   benches/montmul_benchmark.py `run`
                                          (:89-107, built by _build_kernel)
+  scan_layout     scan_layout_kernel     no Pallas kernel: the gather of
+                  (csrc/layout.cu)       pippenger.py's `_sorted_scan_inputs`
+                                         ("rank", :289-297), left to XLA
 
 padd, fold_add and pmadd each launch one of two kernels: one thread an
 element (padd_kernel, fold_add_kernel, pmadd_kernel; for fold_add an
@@ -37,7 +40,8 @@ for the width and the card's SM count. scan_madd_rows launches its three
 kernels (chunk totals, their running sums, each chunk's scan) at the K
 chunks of the step axis that `scan_rows_chunks` gives, or the caller.
 
-The fused MSM path runs scan_madd (one launch per group of windows), padd,
+The fused MSM path runs scan_layout and scan_madd (one launch each per
+group of windows; scan_layout writes what scan_madd reads), padd,
 fold_add, window_tail and horner; the per-window path runs pmadd (one
 launch per scan step), padd, fold_add, window_tail (once per window) and
 horner. jac_madd, jac_add
@@ -48,8 +52,8 @@ montmul_chain runs in the field core's microbench
 (`utils/profiling.py`) takes.
 
 What bounds the kernels, and what their design does about it, is written at
-the top of `csrc/ec_kernels.cu` and `csrc/montmul.cu` (the montmul kernel is
-in its own source).
+the top of `csrc/ec_kernels.cu`, `csrc/montmul.cu` (the montmul kernel is
+in its own source) and `csrc/layout.cu`.
 
 Each wrapper checks its operands' device, makes the choices that read the
 card (the kernel of padd, fold_add and pmadd; the chunks of
@@ -66,7 +70,8 @@ padd, fold_add and pmadd; `<wrapper>.group_launches` those of the group
 kernel alone) and `<plain>.calls` counts plain-version calls; callers may reset
 them to 0. The operators' implementations count, so the launches of a
 program that `torch.export` saved and loaded are counted too.
-Operands are int32 tensors that carry u32 bit patterns.
+Operands are int32 tensors that carry u32 bit patterns, but scan_layout's
+permutation (int64, as torch.sort gives it) and masks (bool).
 """
 
 from __future__ import annotations
@@ -197,6 +202,102 @@ def scan_madd(gx: torch.Tensor, gy: torch.Tensor) -> torch.Tensor:
 
 
 scan_madd.launches = 0
+
+
+# --------------------------------------------------------------------------
+# scan_layout: the sorted points in the scan's layout (the sort stage's
+# gather; csrc/layout.cu).
+# --------------------------------------------------------------------------
+
+def _check_scan_layout(perm, rows, negm, lanes: int) -> None:
+    if perm.dim() != 2 or perm.dtype != _I64:
+        raise ValueError(f"scan_layout perm must be (G, n_pad) int64, got "
+                         f"{tuple(perm.shape)} {perm.dtype}")
+    g, n_pad = perm.shape
+    width = 16 if negm is None else 24
+    if rows.dim() != 2 or rows.dtype != _I32 \
+            or tuple(rows.shape) != (n_pad, width):
+        raise ValueError(f"scan_layout rows must be ({n_pad}, 16) int32, "
+                         f"or ({n_pad}, 24) with negm; got "
+                         f"{tuple(rows.shape)} {rows.dtype}")
+    if negm is not None and (negm.shape != perm.shape
+                             or negm.dtype != torch.bool):
+        raise ValueError(f"scan_layout negm must be {tuple(perm.shape)} "
+                         f"bool, got {tuple(negm.shape)} {negm.dtype}")
+    if lanes < 1 or n_pad % lanes:
+        raise ValueError(f"scan_layout lanes {lanes} must divide n_pad "
+                         f"{n_pad}")
+
+
+def scan_layout_plain(perm: torch.Tensor, rows: torch.Tensor, negm,
+                      lanes: int):
+    """Each window's points in sort order, in the scan's layout: the JAX
+    package's "rank" strategy (`pippenger.py:289-297`) after its sort.
+
+    perm: (G, n_pad) int64 stable sort permutations; rows: the packed
+    words of each point, (n_pad, 16) int32 [x | y] with negm None, or
+    (n_pad, 24) [x | y | -y] with negm the (G, n_pad) bool negation masks;
+    lanes must divide n_pad. Returns (sgx, sgy), each (G, 8, steps, lanes) int32 with
+    steps = n_pad // lanes: column k·lanes + l of window g is the point
+    src = perm[g, l·steps + k], its x words, and its y words or, where
+    negm[g, src], its -y words."""
+    scan_layout_plain.calls += 1
+    _check_scan_layout(perm, rows, negm, lanes)
+    g, n_pad = perm.shape
+    steps = n_pad // lanes
+    # Column k·lanes + l of window g is its sorted position l·steps + k.
+    src = perm.view(g, lanes, steps).transpose(1, 2).reshape(g, n_pad)
+    taken = rows.index_select(0, src.reshape(-1)).view(g, steps, lanes, -1)
+    y = taken[..., 8:16]
+    if negm is not None:
+        neg = torch.gather(negm, 1, src).view(g, steps, lanes, 1)
+        y = torch.where(neg, taken[..., 16:24], y)
+
+    def lay(a):  # (G, steps, lanes, 8) -> (G, 8, steps, lanes)
+        return a.permute(0, 3, 1, 2).contiguous()
+
+    return lay(taken[..., :8]), lay(y)
+
+
+scan_layout_plain.calls = 0
+
+
+def _scan_layout_fake(perm, rows, negm, lanes):
+    shape = (perm.shape[0], 8, perm.shape[1] // lanes, lanes)
+    return tuple(torch.empty(shape, dtype=_I32, device=perm.device)
+                 for _ in range(2))
+
+
+def _scan_layout_cuda(perm, rows, negm, lanes):
+    _check_scan_layout(perm, rows, negm, lanes)
+    sgx, sgy = _scan_layout_fake(perm, rows, negm, lanes)
+    g, n_pad = perm.shape
+    if g and n_pad:
+        _build.launch("tpu_msm_scan_layout", perm.device, perm, rows, negm,
+                      sgx, sgy, g, n_pad, lanes,
+                      dtypes=(_I64, _I32, torch.bool))
+        scan_layout.launches += 1
+    return sgx, sgy
+
+
+def _scan_layout_cpu(perm, rows, negm, lanes):
+    return scan_layout_plain(perm, rows, negm, lanes)
+
+
+_SCAN_LAYOUT = library.define(
+    "scan_layout(Tensor perm, Tensor rows, Tensor? negm, int lanes) -> "
+    "(Tensor, Tensor)",
+    cuda=_scan_layout_cuda, cpu=_scan_layout_cpu, fake=_scan_layout_fake)
+
+
+def scan_layout(perm: torch.Tensor, rows: torch.Tensor, negm, lanes: int):
+    """Kernel wrapper of scan_layout_plain (same arguments and result): one
+    launch for all G windows."""
+    _build.on_cuda(perm, rows, *(() if negm is None else (negm,)))
+    return _SCAN_LAYOUT(perm, rows, negm, lanes)
+
+
+scan_layout.launches = 0
 
 
 # --------------------------------------------------------------------------

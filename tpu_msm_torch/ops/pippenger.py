@@ -9,8 +9,9 @@ bucket_b = X(s_{b+1}) - X(s_b), each window sum telescopes:
 Two routes compute the window sums, as in the JAX package:
 
 * the fused route (`_fused_sums`): `_window_heavy` per group of windows
-  (`window_group_size`; for the group one stable sort carrying the packed
-  coordinates, one scan launch, one histogram launch and one gather of the
+  (`window_group_size`; for the group one stable digit sort, one
+  scan_layout launch that gathers the sorted points' rows into the scan's
+  layout, one scan launch, one histogram launch and one gather of the
   prefix sums at the bucket boundaries), then
   `_sides_batched` over all windows (inter-lane carries, the X(s_b) fold
   and rolled tree, the window_tail kernel);
@@ -32,7 +33,10 @@ on the JAX CPU backend, and the fused ones projectively equal to it.
 `horner_fold` then joins the windows (the horner kernel). Every other EC
 add goes through `ec_add` or `ec_madd` (the padd and pmadd kernels on the
 card, their plain versions on the CPU), every fold through the fold_add
-kernel; everything else is plain torch, as the JAX package left it to XLA.
+kernel. The fused route's layout of the sorted points is the scan_layout
+kernel, though the JAX package left that stage to XLA: a torch gather
+reads 4 bytes an index, the kernel a point's 64-byte row. Everything else
+is plain torch, as the JAX package left it to XLA.
 
 With `cfg.glv` both routes first split every scalar by the GLV
 endomorphism (`_glv_split`, `pippenger.py:583-598` of the JAX package):
@@ -54,7 +58,7 @@ import torch
 
 from tpu_msm_torch.ops import curve, field, glv, hist, u256
 from tpu_msm_torch.ops.cuda_curve import (fold_add, horner, padd, pmadd,
-                                          scan_madd, window_tail)
+                                          scan_layout, scan_madd, window_tail)
 from tpu_msm_torch.ops.curve import AffinePoint, ProjPoint
 from tpu_msm_torch.utils.config import MsmConfig, select_config
 
@@ -62,8 +66,11 @@ from tpu_msm_torch.utils.config import MsmConfig, select_config
 _XYZ = (slice(0, 16), slice(16, 32), slice(32, 48))
 
 # What one window of a `_window_heavy` group holds per padded point: the
-# sorted digit and its 16 payload words, the sort's int64 permutation and
-# the scan's 48 output rows.
+# sorted digit, the sort's int64 permutation, the point's 16 words in the
+# scan's layout (sgx, sgy) and the scan's 48 output rows. The permutation
+# dies once the layout is written, before the scan's output exists, so this
+# is 8 bytes above the peak. The point-major table that the layout reads
+# (`scan_operands`, 64 or 96 bytes a point) is one for all the groups.
 GROUP_BYTES_PER_POINT = 4 * (1 + 16) + 8 + 4 * 48
 # The group budget on the CPU, which has no device memory to take 1/8 of.
 CPU_GROUP_BUDGET = 1 << 30
@@ -144,31 +151,22 @@ def pack_u16_rows(a: torch.Tensor) -> torch.Tensor:
     return torch.where(v >= 1 << 31, v - (1 << 32), v).to(torch.int32)
 
 
-def _sorted_scan_inputs(digits, negm, ppx, ppy, lanes: int, steps: int):
-    """Stable digit sort of each of G windows' packed coordinates into the
+def _sorted_scan_inputs(digits, negm, rows, lanes: int):
+    """Stable digit sort of each of G windows, and the sorted points in the
     scan kernel's (G, 8, steps, lanes) layout: sorted position p sits at
-    lane p // steps, step p % steps (`pippenger.py:302-305`). Both JAX
-    `sort_impl` values give this permutation.
+    lane p // steps, step p % steps (`pippenger.py:302-305`). Two steps:
+    `torch.sort` of the digits, then one `scan_layout` launch, which takes
+    each column's point as one row of the point-major table (the JAX
+    package's "rank" strategy, `pippenger.py:289-297`; both JAX `sort_impl`
+    values give this permutation).
 
-    digits: (G, n_pad); negm: (G, n_pad) negation masks or None; ppx:
-    (8, n_pad) packed x; ppy: (8, n_pad) packed y, or (8, 2·n_pad) y then -y
-    with negm, where window g takes -y at the points its mask negates.
-    Returns (sorted_digits (G, n_pad), sgx, sgy)."""
-    g, n_pad = digits.shape
+    digits: (G, n_pad); negm: (G, n_pad) negation masks or None; rows:
+    (n_pad, 16) packed words of each point, [x | y], or (n_pad, 24)
+    [x | y | -y] with negm, where window g takes -y at the points its mask
+    negates (`scan_operands`). Returns (sorted_digits (G, n_pad), sgx,
+    sgy)."""
     sorted_digits, perm = torch.sort(digits, dim=1, stable=True)
-    # Column k·lanes + l of window g is its sorted position l·steps + k.
-    idx = perm.view(g, lanes, steps).transpose(1, 2).reshape(g, 1, n_pad)
-    del perm
-
-    def lay(pp, index):  # one gather for all G windows, (G, 8, steps, lanes)
-        return torch.gather(pp.expand(g, 8, pp.shape[1]), 2,
-                            index.expand(g, 8, n_pad)).view(g, 8, steps,
-                                                            lanes)
-
-    sgx = lay(ppx, idx)
-    if negm is not None:
-        idx = idx + n_pad * torch.gather(negm, 1, idx[:, 0])[:, None]
-    return sorted_digits, sgx, lay(ppy, idx)
+    return (sorted_digits, *scan_layout(perm, rows, negm, lanes))
 
 
 def window_group_size(w: int, n_pad: int, device) -> int:
@@ -219,28 +217,29 @@ def _segment_starts(digits, m: int, cfg: MsmConfig):
     return torch.searchsorted(digits, bvals, side="left", out_int32=True)
 
 
-def _window_heavy(digits, negm, ppx, ppy, n: int, cfg: MsmConfig):
+def _window_heavy(digits, negm, rows, n: int, cfg: MsmConfig):
     """The heavy stages of a group of G windows, each stage once for the
-    group: the sort and the scan launch, the segment starts (one digit_hist
-    launch with "hist"), and one gather of the prefix sums at the bucket
-    boundaries. digits, negm: (G, n_pad) rows of the group's windows (negm
-    None for unsigned digits); ppx, ppy as `_sorted_scan_inputs` takes them.
+    group: the sort, the scan_layout launch and the scan launch, the segment
+    starts (one digit_hist launch with "hist"), and one gather of the prefix
+    sums at the bucket boundaries. digits, negm: (G, n_pad) rows of the
+    group's windows (negm None for unsigned digits); rows the point-major
+    table as `_sorted_scan_inputs` takes it.
 
     Returns the group's small arrays, stacked: the lane totals
     (G, 48, lanes), the prefix sums at the m+1 queries s_1..s_m, n
     (G, 48, m+1), the query lanes and the zero-query mask (G, m+1). The
-    group's O(G·n) transients are alive together and die here, before the
-    next group starts: GROUP_BYTES_PER_POINT (268) bytes a point and window,
-    the sorted digits and payload, the sort's int64 permutation and the
-    48-row scan output, which `window_group_size` keeps within 1/8 of the
-    card's memory (about 4.5 GB for 16 windows at 2^20; at 2^24 a group of
-    two windows holds about 9 GB)."""
+    group's O(G·n) transients die here, before the next group starts: at
+    most GROUP_BYTES_PER_POINT (268) bytes a point and window, the sorted
+    digits, the sort's int64 permutation (until the layout is written), the
+    16 words of each point in the scan's layout and the 48-row scan output,
+    which `window_group_size` keeps within 1/8 of the card's memory (about
+    4.5 GB for 16 windows at 2^20; at 2^24 a group of two windows holds
+    about 9 GB)."""
     m = cfg.buckets_per_window()
     g = digits.shape[0]
     lanes = cfg.scan_lanes
     steps = digits.shape[1] // lanes
-    sorted_digits, sgx, sgy = _sorted_scan_inputs(digits, negm, ppx, ppy,
-                                                  lanes, steps)
+    sorted_digits, sgx, sgy = _sorted_scan_inputs(digits, negm, rows, lanes)
     ys = scan_madd(sgx, sgy).view(g, 48, steps * lanes)  # one launch
     del sgx, sgy
     # "hist" is order-free: it counts the unsorted digits.
@@ -513,30 +512,30 @@ def _digits(points: AffinePoint, scalar_limbs, cfg: MsmConfig):
 
 def scan_operands(points: AffinePoint, scalar_limbs, cfg: MsmConfig):
     """What the fused route sorts: (cfg with the lanes, n, digits (W,
-    n_pad), negm (W, n_pad) or None, ppx (8, n_pad), ppy (8, n_pad), or
-    (8, 2·n_pad) y then -y with signed digits), as `_sorted_scan_inputs`
-    takes them a group of windows at a time."""
+    n_pad), negm (W, n_pad) or None, rows), as `_sorted_scan_inputs` takes
+    them a group of windows at a time. rows is the point-major table of the
+    packed words (`pack_u16_rows`), one row a point: (n_pad, 16) [x | y],
+    or (n_pad, 24) [x | y | -y] with signed digits, built once a call (64
+    or 96 bytes a point), so that each window's layout reads a point as one
+    64-byte row."""
     points, cfg, n, digits, negm, y_neg = _digits(points, scalar_limbs, cfg)
-    n_pad = digits.shape[1]
+    coords = (points.x, points.y) + (() if y_neg is None else (y_neg,))
     # The padding positions carry the (0, 0) affine infinity: the scan
-    # skips it. With signed digits -y follows y, so one gather serves both.
-    ppx = _pad_cols(pack_u16_rows(points.x), n_pad - n, 0)
-    ppy = _pad_cols(pack_u16_rows(points.y), n_pad - n, 0)
-    if y_neg is not None:
-        ppy = torch.cat([ppy, _pad_cols(pack_u16_rows(y_neg), n_pad - n, 0)],
-                        dim=1)
-    return cfg, n, digits, negm, ppx, ppy
+    # skips it.
+    rows = _pad_cols(torch.cat([pack_u16_rows(a) for a in coords]),
+                     digits.shape[1] - n, 0).t().contiguous()
+    return cfg, n, digits, negm, rows
 
 
 def _fused_sums(points: AffinePoint, scalar_limbs, cfg: MsmConfig) -> ProjPoint:
     """Window sums (W, 16, 1) by the fused route: `_window_heavy` over
     groups of `window_group_size` windows, then `_sides_batched`."""
-    cfg, n, digits, negm, ppx, ppy = scan_operands(points, scalar_limbs, cfg)
+    cfg, n, digits, negm, rows = scan_operands(points, scalar_limbs, cfg)
     w, n_pad = digits.shape
     group = window_group_size(w, n_pad, digits.device)
     smalls = [_window_heavy(digits[s:s + group],
                             None if negm is None else negm[s:s + group],
-                            ppx, ppy, n, cfg)
+                            rows, n, cfg)
               for s in range(0, w, group)]
     return _sides_batched(*(torch.cat(s) for s in zip(*smalls)), cfg=cfg)
 
