@@ -10,8 +10,9 @@ C++ engine's result exactly:
 
   * the main path: `tpu_msm_torch.msm_best` at n = 2^12 and n = 2^20 on
     bench-style inputs, with the tuned row `select_config` reads from the
-    autotune table (the fused route: scan_layout, scan_madd and digit_hist
-    over groups of windows, padd, fold_add, window_tail, horner);
+    autotune table (the fused route: scan_madd_sorted and digit_hist over
+    groups of windows, padd, fold_add, window_tail, horner; no scan_layout
+    or scan_madd launch, which the counts assert);
   * the per-window path: `tpu_msm_torch.msm` at n = 2^20 with 16384 scan
     lanes, once with each segment-start option (pmadd, padd, fold_add,
     digit_hist, window_tail, horner);
@@ -69,25 +70,33 @@ C++ engine's result exactly:
     conversion_benchmark` at 2^20 (each converter against a formulation
     written here, both round trips), `sort_benchmark` part (a) at
     2^16-2^22 (against np.sort and the stable np.argsort's gather) and part
-    (b) at the tuned 2^20 row (bit for bit `msm_device`'s own
-    `_sorted_scan_inputs` call; a profiled call split into its sort, its
-    scan_layout launch and the rest, and the same kernels' share of
-    torch's own in a profiled `msm_device`), and
+    (b) at the tuned 2^20 row (its `_sorted_scan_inputs` layout bit for
+    bit that of the permutation `msm_device`'s own first scan takes; a
+    profiled call split into its sort, its scan_layout launch and the rest,
+    the sort's share of torch's own kernels in a profiled `msm_device`,
+    which launches no scan_layout), and
     `msm_benchmark` at 2^20 over 2 instances (instance 0 against the native
     engine); their JSON lines logged as phase 18's lines.
 
 Phase 5 also runs the CLI's `22 1 stream 1` and `20 1 hybrid 1`, each of
 which holds its result against the native engine.
 
-Phase 2 holds scan_layout (csrc/layout.cu, the sort stage's gather into
-the scan's layout) against its plain version and against the torch
-formulation it replaced (the lane-major copy of the permutation and two
-4-byte column gathers, written here as `replaced_layout`, bit for bit), at
-each shape the paths give it: the tuned 2^20 row, MsmConfig()'s signed
-4096 lanes at 2^20, a streamed 2^22 chunk's group and the 2^12 call; and
-times the three, beside the bound. Phases 11, 15 and 17 hold it on each
-route's own inputs (the streamed and sharded calls through RouteSpy, the
-loaded export artifact through `op_calls`).
+Phase 2 holds scan_madd_sorted (the main path's scan, which reads each
+step's point from the point-major table in sort order) against its plain
+version at a small shape (2 windows, 8 steps, 1024 lanes, signed and
+unsigned, with indices outside the table), and against the unfused pair
+it replaced on the main path, scan_madd(scan_layout(...)), bit for bit,
+at each shape the paths give it: the tuned 2^20 row, MsmConfig()'s signed
+4096 lanes at 2^20, a streamed 2^22 chunk's group and the 2^12 call;
+there it times the two by CUDA graph in turns, beside the bound. At the
+same shapes it holds scan_layout (csrc/layout.cu, now the reference of
+scan_madd_sorted and the sort bench's layout) against its plain version
+and against the torch formulation it replaced (the lane-major copy of the
+permutation and two 4-byte column gathers, written here as
+`replaced_layout`, bit for bit), and times the three. Phases 11, 15 and 17
+hold scan_madd_sorted on each route's own inputs against the pair and, on
+its first 8 steps, against its plain version (the streamed and sharded
+calls through RouteSpy, the loaded export artifact through `op_calls`).
 Phase 2 holds the histogram in each of its regimes (ops/hist.py, `plan`)
 against its plain version and times the two regimes for the tuned row's
 65,536 bins (split bins, 16-bit counters) in turns; it holds both kernels
@@ -247,7 +256,9 @@ def once(fn):
 
 
 def max_abs_err(got, want):
-    """Largest |kernel - plain| over every output; 0 when bit-identical."""
+    """Largest |kernel - plain| over every output; 0 when bit-identical.
+    The difference of outputs that differ is taken 2^26 elements at a time,
+    in int64: a scan group's output is 9 GiB of int32 at 2^22."""
     import torch
 
     if isinstance(got, torch.Tensor):
@@ -257,8 +268,13 @@ def max_abs_err(got, want):
         if g.shape != w.shape or g.dtype != w.dtype:
             raise AssertionError(f"shape/dtype {g.shape} {g.dtype} vs "
                                  f"{w.shape} {w.dtype}")
-        diff = (g.to(torch.int64) - w.to(torch.int64)).abs()
-        err = max(err, int(diff.max().item()) if diff.numel() else 0)
+        if torch.equal(g, w):
+            continue
+        g, w = g.reshape(-1), w.reshape(-1)
+        for i in range(0, g.numel(), 1 << 26):
+            diff = (g[i:i + (1 << 26)].to(torch.int64)
+                    - w[i:i + (1 << 26)].to(torch.int64)).abs()
+            err = max(err, int(diff.max().item()))
     return err
 
 
@@ -360,22 +376,24 @@ def edge_cols(width):
 
 
 def checker(entries, phase):
-    """check(name, shape, got, want): kernel output against its plain
-    version, bit for bit; records the shape in entries[name]."""
+    """check(name, shape, got, want, against="plain"): kernel output
+    against its plain version (or the reference `against` names), bit for
+    bit; records the shape in entries[name]."""
     import torch
 
-    def check(name, shape, got, want):
+    def check(name, shape, got, want, against="plain"):
         torch.cuda.synchronize()
         err = max_abs_err(got, want)
         if err != 0:
-            raise AssertionError(f"{name} {shape}: kernel differs from its "
-                                 f"plain version (max abs err {err})")
-        log(phase, f"{name} {shape}: kernel == plain (bit-identical)")
+            raise AssertionError(f"{name} {shape}: kernel differs from "
+                                 f"{against} (max abs err {err})")
+        log(phase, f"{name} {shape}: kernel == {against} (bit-identical)")
         rec = entries.setdefault(name, {"max_abs_err": 0, "checked": []})
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
         # Shapes go into the JSON line as strings: its numbers are all
         # measured in this run.
-        rec["checked"].append(str(shape))
+        rec["checked"].append(str(shape) if against == "plain"
+                              else f"{shape} against {against}")
 
     return check
 
@@ -495,7 +513,8 @@ KERNEL_FUNCTIONS = ("scan_madd_rows_kernel", "scan_madd_rows_totals_kernel",
                     "padd_group_kernel", "padd_kernel", "window_tail_kernel",
                     "horner_kernel", "fold_add_group_kernel",
                     "fold_add_kernel", "digit_hist_kernel",
-                    "montmul_chain_kernel", "scan_layout_kernel")
+                    "montmul_chain_kernel", "scan_layout_kernel",
+                    "scan_madd_sorted_kernel")
 
 
 def phase_build():
@@ -511,9 +530,11 @@ def phase_build():
         if "Compiling entry function" in line or "Function properties" in line:
             # Lines that follow a device function's header are not a kernel's.
             kernel = next((k for k in KERNEL_FUNCTIONS if k in line), None)
-            # digit_hist_kernel<u16>, scan_layout_kernel<signed>: the
-            # mangled template argument.
-            args = re.search(r"(digit_hist|scan_layout)_kernelILb(\d)E", line)
+            # digit_hist_kernel<u16>, scan_layout_kernel<signed>,
+            # scan_madd_sorted_kernel<signed>: the mangled template argument.
+            args = re.search(
+                r"(digit_hist|scan_layout|scan_madd_sorted)_kernelILb(\d)E",
+                line)
             if args:
                 what = "u16" if args[1] == "digit_hist" else "signed"
                 kernel += f"<{what} {args[2]}>"
@@ -746,15 +767,82 @@ def replaced_layout(perm, ppx, ppy, negm, lanes):
     return sgx, lay(ppy, idx)
 
 
+def sorted_work(perm, rows, negm):
+    """scan_madd_sorted's work: 11 products a step whose point is finite
+    (in the table and not the (0, 0) row), and the permutation, the table
+    and the masks read once, the 48-row output written once (bytes)."""
+    g, n_pad = perm.shape
+    nonzero = rows.ne(0).any(dim=1)
+    inside = (perm >= 0) & (perm < n_pad)
+    finite = int((nonzero[perm.clamp(0, n_pad - 1)] & inside).sum().item())
+    return {"ops": ec_work(11 * finite, 0, 0)["ops"],
+            "bytes": (8 + 192 + (negm is not None)) * g * n_pad
+            + 4 * rows.shape[1] * n_pad}
+
+
+def sorted_head_plain(perm, rows, negm, lanes, head=8):
+    """scan_madd_sorted_plain's first `head` steps, (G, 48, head, lanes): a
+    prefix scan's first steps depend on nothing after them, so the plain
+    scan runs on the first `head` steps of the plain layout."""
+    from tpu_msm_torch.ops import cuda_curve as cc
+
+    return cc.scan_madd_plain(*(a[:, :, :head].contiguous() for a in
+                                cc.scan_layout_plain(perm, rows, negm,
+                                                     lanes)))
+
+
+def phase_sorted_small(dev, entries):
+    """scan_madd_sorted against its plain version, bit for bit, at a small
+    shape: 2 windows of 8 steps x 1024 lanes over a table of seeded curve
+    points with infinities (edge_affine), signed and unsigned, the stable
+    sort of seeded digits, and three indices outside the table (-1, n_pad,
+    2^40), which the kernel takes as the (0, 0) point and the plain version
+    is handed as the index of a (0, 0) row."""
+    import torch
+
+    from tpu_msm_torch.ops import cuda_curve as cc
+    from tpu_msm_torch.ops import field
+    from tpu_msm_torch.ops.pippenger import pack_u16_rows
+
+    check = checker(entries, 2)
+    lanes, steps, g = 1024, 8, 2
+    n_pad = lanes * steps
+    (ax, ay), _ = edge_affine(dev, n_pad, SEED + 20)  # column 0: infinity
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    digits = torch.randint(0, 300, (g, n_pad), generator=gen, device=dev,
+                           dtype=torch.int32)
+    perm = torch.sort(digits, dim=1, stable=True)[1]
+    bad = perm.clone()
+    bad[0, 3], bad[1, 100], bad[1, 7] = -1, n_pad, 1 << 40
+    fixed = bad.clone()
+    fixed[(bad < 0) | (bad >= n_pad)] = 0
+    for signed in (False, True):
+        coords = [ax, ay] + ([field.neg_mod(ay)] if signed else [])
+        rows = torch.cat([pack_u16_rows(c) for c in coords]).t().contiguous()
+        negm = (torch.rand((g, n_pad), generator=gen, device=dev) < 0.5
+                if signed else None)
+        for what, p, q in (("", perm, perm),
+                           ("indices outside the table", bad, fixed)):
+            check("scan_madd_sorted",
+                  [g, n_pad, rows.shape[1], lanes] + ([what] if what else []),
+                  cc.scan_madd_sorted(p, rows, negm, lanes),
+                  cc.scan_madd_sorted_plain(q, rows, negm, lanes))
+
+
 def phase_layout(dev, entries, inputs):
-    """scan_layout at each shape the paths give it, on the sorted digits of
-    that shape: the tuned 2^20 row and MsmConfig()'s defaults (signed, 4096
-    lanes) on the bench inputs (`pippenger.scan_operands`), the first group
-    of a streamed 2^22 chunk (the 2^24 route's) on seeded random digits and
-    words, and the 2^12 call on its bench inputs. At each: the kernel held
-    bit for bit against its plain version and against `replaced_layout`,
-    then the three timed (the replaced one by graph_ms too), with the bound
-    (layout_work)."""
+    """scan_madd_sorted, and scan_layout, at each shape the paths give the
+    sorted scan, on the sorted digits of that shape: the tuned 2^20 row and
+    MsmConfig()'s defaults (signed, 4096 lanes) on the bench inputs
+    (`pippenger.scan_operands`), the first group of a streamed 2^22 chunk
+    (the 2^24 route's) on seeded random digits and words, and the 2^12 call
+    on its bench inputs. At each: scan_madd_sorted held bit for bit against
+    the unfused pair scan_madd(scan_layout(...)), the two timed by CUDA
+    graph in turns (sorted, pair, pair, sorted) beside the bound
+    (sorted_work), its plain version timed on one window's first 8 steps'
+    points; scan_layout held bit for bit against its plain version and
+    against `replaced_layout`, the three timed (the replaced one by
+    graph_ms too), with its bound (layout_work). First
+    phase_sorted_small."""
     import torch
 
     from tpu_msm_torch import select_config
@@ -764,6 +852,7 @@ def phase_layout(dev, entries, inputs):
     from tpu_msm_torch.utils import interop
     from tpu_msm_torch.utils.config import MsmConfig
 
+    phase_sorted_small(dev, entries)
     check = checker(entries, 2)
     timed = timer(2)
 
@@ -793,16 +882,55 @@ def phase_layout(dev, entries, inputs):
               "MsmConfig() at 2^20": bench_group(20, MsmConfig()),
               "a streamed 2^22 chunk's group": random_group(22),
               "the 2^12 call": bench_group(12, select_config(1 << 12, dev))}
-    recs = []
+    recs, sorted_recs = [], []
     for what, (digits, negm, rows, lanes) in groups.items():
         g, n_pad = digits.shape
         perm = torch.sort(digits, dim=1, stable=True)[1]
+        shape = [g, n_pad, rows.shape[1], lanes]
+
+        # ---- scan_madd_sorted against the pair it replaced ----
+        def fused():
+            return cc.scan_madd_sorted(perm, rows, negm, lanes)
+
+        def pair():
+            return cc.scan_madd(*cc.scan_layout(perm, rows, negm, lanes))
+
+        check("scan_madd_sorted", f"{shape} ({what})", fused(), pair(),
+              against="scan_madd(scan_layout)")
+        runs = {"sorted": [], "pair": []}
+        for which in ("sorted", "pair", "pair", "sorted"):
+            runs[which].append(graph_ms(fused if which == "sorted"
+                                        else pair))
+        # The plain version on one window's first 8 steps' worth of points
+        # (8 x lanes of the table, their digits and masks).
+        cut = 8 * lanes
+        cut_perm = torch.sort(digits[:1, :cut], dim=1, stable=True)[1]
+        cut_rows = rows[:cut].contiguous()
+        cut_negm = None if negm is None else negm[:1, :cut].contiguous()
+        plain_ms = cuda_ms(lambda: cc.scan_madd_sorted_plain(
+            cut_perm, cut_rows, cut_negm, lanes))
+        rec = {"shape": str(shape), "what": what,
+               "ms": statistics.mean(runs["sorted"]),
+               "ms_runs": runs["sorted"], "pair_ms_runs": runs["pair"],
+               "pair_ms": statistics.mean(runs["pair"]),
+               "call_ms": cuda_ms(fused), "plain_ms": plain_ms,
+               "plain_shape": str([1, cut, rows.shape[1], lanes]),
+               **bound(sorted_work(perm, rows, negm)), "library_ms": None}
+        log(2, f"time scan_madd_sorted {shape} ({what}) on the device: "
+            f"{runs['sorted']} ms, the pair scan_madd(scan_layout) "
+            f"{runs['pair']} ms (sorted / pair "
+            f"{rec['ms'] / rec['pair_ms']:.4f}); plain {plain_ms:.4f} ms at "
+            f"{rec['plain_shape']}; bound {rec['bound_ms']:.4f} ms by "
+            f"{rec['bound_by']} ({rec['ms'] / rec['bound_ms']:.2f} times "
+            f"it)")
+        sorted_recs.append(rec)
+
+        # ---- scan_layout: its plain version and the replaced gathers ----
         # The planar tables the replaced formulation gathered from, (8,
         # n_pad) x and y, (8, 2·n_pad) y then -y with masks.
         ppx = rows[:, :8].t().contiguous()
         ppy = (torch.cat([rows[:, 8:16].t(), rows[:, 16:24].t()], dim=1)
                if negm is not None else rows[:, 8:16].t().contiguous())
-        shape = [g, n_pad, rows.shape[1], lanes]
         got = cc.scan_layout(perm, rows, negm, lanes)
         check("scan_layout", f"{shape} ({what})", got,
               cc.scan_layout_plain(perm, rows, negm, lanes))
@@ -830,9 +958,11 @@ def phase_layout(dev, entries, inputs):
             f"times it); {anew_ms:.4f} ms to move the bytes with the table "
             f"read anew each window")
         recs.append(rec)
-        del perm, ppx, ppy, digits, negm, rows
+        del perm, ppx, ppy, digits, negm, rows, cut_perm, cut_rows, cut_negm
     first, *others = recs
     entries["scan_layout"].update(first, other_shapes=others)
+    first, *others = sorted_recs
+    entries["scan_madd_sorted"].update(first, other_shapes=others)
     torch.cuda.synchronize()
 
 
@@ -1109,7 +1239,8 @@ def counters():
         ("fold_add", cc.fold_add), ("digit_hist", hist.digit_hist),
         ("pmadd", cc.pmadd), ("jac_madd", cc.jac_madd),
         ("jac_add", cc.jac_add), ("scan_madd_rows", cc.scan_madd_rows),
-        ("montmul_chain", cc.montmul_chain), ("scan_layout", cc.scan_layout))}
+        ("montmul_chain", cc.montmul_chain), ("scan_layout", cc.scan_layout),
+        ("scan_madd_sorted", cc.scan_madd_sorted))}
     kernels["padd_group"] = (cc.padd, "group_launches")
     kernels["fold_add_group"] = (cc.fold_add, "group_launches")
     kernels["pmadd_group"] = (cc.pmadd, "group_launches")
@@ -1117,7 +1248,7 @@ def counters():
               cc.horner_plain, cc.fold_add_plain, hist.digit_hist_plain,
               cc.pmadd_plain, cc.jac_madd_plain, cc.jac_add_plain,
               cc.scan_madd_rows_plain, cc.montmul_chain_plain,
-              cc.scan_layout_plain]
+              cc.scan_layout_plain, cc.scan_madd_sorted_plain]
     return kernels, plains
 
 
@@ -1129,17 +1260,20 @@ def reset_counts():
         fn.calls = 0
 
 
-MAIN_KERNELS = ("scan_layout", "scan_madd", "padd", "fold_add", "digit_hist",
+MAIN_KERNELS = ("scan_madd_sorted", "padd", "fold_add", "digit_hist",
                 "window_tail", "horner")
+# The unfused pair scan_madd_sorted replaced: the fused route launches
+# neither.
+UNFUSED = ("scan_layout", "scan_madd")
 # Kernels whose wrapper counts a second kernel's launches too: its own are
 # the wrapper's count less the second's.
 SHARED_COUNTS = {"padd": "padd_group", "fold_add": "fold_add_group",
                  "pmadd": "pmadd_group"}
 
 
-def read_counts(phase, path_kernels):
+def read_counts(phase, path_kernels, absent=()):
     """The counts since reset_counts(); raises unless every kernel of the
-    path launched and no plain version ran."""
+    path launched, none of `absent` did and no plain version ran."""
     kernels, plains = counters()
     launches = {k: getattr(fn, attr) for k, (fn, attr) in kernels.items()}
     calls = {fn.__name__: fn.calls for fn in plains}
@@ -1147,6 +1281,9 @@ def read_counts(phase, path_kernels):
     missing = [k for k in path_kernels if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels of the path never launched: {missing}")
+    off = {k: launches[k] for k in absent if launches[k]}
+    if off:
+        raise AssertionError(f"kernels off the path launched: {off}")
     if any(calls.values()):
         raise AssertionError(f"a plain version ran on the card: {calls}")
     return launches
@@ -1180,7 +1317,7 @@ def phase_e2e(dev, inputs, expected):
     med = statistics.median(times)
     log(3, f"msm_best n=2^20: median {med:.4f} s of {[round(t, 4) for t in times]}"
         f" -> {(1 << 20) / med:.1f} points/s")
-    launches = read_counts(3, MAIN_KERNELS)
+    launches = read_counts(3, MAIN_KERNELS, UNFUSED)
 
     # The device pipeline alone on device-resident inputs (no host-side
     # coercion, transfer or affine conversion), as bench.py times it.
@@ -1191,7 +1328,8 @@ def phase_e2e(dev, inputs, expected):
     dev_ms = cuda_ms(lambda: tpu_msm_torch.msm_device(dpx, dpy, dsl, cfg))
     log(3, f"msm_device n=2^20 on device-resident inputs: {dev_ms:.3f} ms "
         f"-> {(1 << 20) / dev_ms * 1e3:.1f} points/s")
-    # One call's launches and peak memory: ceil(W / G) scan launches, the
+    # One call's launches and peak memory: ceil(W / G) scan launches (the
+    # sorted scan; no layout, no scan of a written layout), the
     # wide padd calls (lane-carry scan, query adds, rolled tree; each on the
     # kernel kernel_path gives its width) and one launch of each tail kernel.
     from tpu_msm_torch.ops import cuda_curve as cc
@@ -1204,7 +1342,7 @@ def phase_e2e(dev, inputs, expected):
     tpu_msm_torch.msm_device(dpx, dpy, dsl, cfg)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
-    one = read_counts(3, MAIN_KERNELS)
+    one = read_counts(3, MAIN_KERNELS, UNFUSED)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     padd_calls = {  # width: launches
         sh["w"] * sh["lanes"]: (sh["lanes"] - 1).bit_length(),
@@ -1213,8 +1351,8 @@ def phase_e2e(dev, inputs, expected):
         .bit_length()}
     paths = {width: cc.kernel_path(width, sms) for width in padd_calls}
     fold_path = cc.kernel_path(sh["w"] * sh["fanout"], sms)
-    want = {"scan_layout": -(-sh["w"] // sh["g"]),
-            "scan_madd": -(-sh["w"] // sh["g"]),
+    want = {"scan_madd_sorted": -(-sh["w"] // sh["g"]), "scan_layout": 0,
+            "scan_madd": 0,
             "digit_hist": -(-sh["w"] // sh["g"]), "window_tail": 1,
             "horner": 1, "padd": sum(padd_calls.values()),
             "padd_group": sum(k for width, k in padd_calls.items()
@@ -1224,8 +1362,9 @@ def phase_e2e(dev, inputs, expected):
         raise AssertionError(f"launches of one msm_device call at 2^20: "
                              f"{one}, expected {want}")
     log(3, f"msm_device n=2^20: G = {sh['g']} of {sh['w']} windows a scan "
-        f"and histogram launch; launches {json.dumps(one)} (layout "
-        f"{one['scan_layout']}, scan {one['scan_madd']}, digit_hist "
+        f"and histogram launch; launches {json.dumps(one)} (sorted scan "
+        f"{one['scan_madd_sorted']}, layout {one['scan_layout']}, scan of a "
+        f"layout {one['scan_madd']}, digit_hist "
         f"{one['digit_hist']}, padd {one['padd']}: "
         f"{one['padd'] - one['padd_group']} padd_kernel, "
         f"{one['padd_group']} padd_group_kernel, by width "
@@ -1802,8 +1941,8 @@ def phase_glv(dev, inputs, expected):
         if got != expected[log_n]:
             raise AssertionError(f"GLV msm n=2^{log_n}: {got} != native "
                                  f"{expected[log_n]}")
-        read_counts(8, ("scan_layout", "scan_madd", "padd", "digit_hist",
-                        "window_tail", "horner"))
+        read_counts(8, ("scan_madd_sorted", "padd", "digit_hist",
+                        "window_tail", "horner"), UNFUSED)
         log(8, f"GLV msm n=2^{log_n} == native engine (affine, exact)")
         dpx, dpy, dsl = interop.limbs_to_device(px, py, sl, dev)
         times = {False: [], True: []}
@@ -1873,9 +2012,9 @@ def phase_options(dev, inputs, expected):
             raise AssertionError(f"msm_device n=2^{log_n} {change}: {got} != "
                                  f"the tuned row's {expected[log_n]}")
         hist_path = cfg.segment_starts in ("hist", "hist_cols")
-        one = read_counts(10, ("scan_layout", "scan_madd", "padd",
-                               "window_tail", "horner")
-                          + (("digit_hist",) if hist_path else ()))
+        one = read_counts(10, ("scan_madd_sorted", "padd", "window_tail",
+                               "horner")
+                          + (("digit_hist",) if hist_path else ()), UNFUSED)
         groups = -(-cfg.num_windows() // pippenger.window_group_size(
             cfg.num_windows(), 1 << log_n, dev))
         if one["digit_hist"] != (groups if hist_path else 0):
@@ -1900,9 +2039,9 @@ STREAM_LOG = 24
 
 class RouteSpy:
     """While active, wraps the kernel wrappers the routes call
-    (pippenger's imports of cuda_curve's scan_layout, scan_madd, padd,
-    pmadd, fold_add, window_tail and horner; hist.digit_hist, which the
-    segment starts call)
+    (pippenger's imports of cuda_curve's scan_madd_sorted, padd, pmadd,
+    fold_add, window_tail and horner; hist.digit_hist, which the segment
+    starts call)
     and records, for each kernel and input shape, the launches its calls
     made and a copy of the first call's inputs. padd, pmadd and fold_add
     are recorded under the kernel their rule took (padd or padd_group, ...).
@@ -1912,8 +2051,8 @@ class RouteSpy:
         from tpu_msm_torch.ops import hist, pippenger
 
         self.targets = [(pippenger, name) for name in (
-            "scan_layout", "scan_madd", "padd", "pmadd", "fold_add",
-            "window_tail", "horner")]
+            "scan_madd_sorted", "padd", "pmadd", "fold_add", "window_tail",
+            "horner")]
         self.targets.append((hist, "digit_hist"))
         self.calls = {}  # (kernel, shape) -> {"launches": k, "args": ...}
 
@@ -2007,8 +2146,10 @@ def check_route(phase, entries, calls):
     """Each kernel the route launched, at each shape it launched it at,
     against its plain version on the inputs of its first call there,
     bit for bit; the scan on its first 8 steps (a prefix scan's first
-    steps depend on nothing after them); horner at a shape already
-    checked in the run takes that verdict (HORNER_VERDICTS). Returns
+    steps depend on nothing after them), the sorted scan on its first 8
+    steps and in full against the unfused pair scan_madd(scan_layout(...));
+    horner at a shape already checked in the run takes that verdict
+    (HORNER_VERDICTS). Returns
     {kernel: [{"shape", "launches"}]}, with "verdict_from": the phase
     whose check a shape reused, where it was not checked on these inputs.
     Logs the seconds the checks took, by kernel."""
@@ -2029,6 +2170,13 @@ def check_route(phase, entries, calls):
             entry["verdict_from"] = HORNER_VERDICTS[shape]
             log(phase, f"horner {label}: checked at this shape in phase "
                 f"{HORNER_VERDICTS[shape]}, its verdict reused")
+        elif base == "scan_madd_sorted":
+            got = cc.scan_madd_sorted(*args)
+            check(kernel, label, got, cc.scan_madd(*cc.scan_layout(*args)),
+                  against="scan_madd(scan_layout)")
+            check(kernel, f"{label}, first 8 steps",
+                  got[:, :, :8].contiguous(), sorted_head_plain(*args))
+            del got
         elif base == "scan_madd":
             head = [a[:, :, :8].contiguous() for a in args]
             check(kernel, f"{label}, first 8 steps",
@@ -2096,9 +2244,9 @@ def phase_stream(dev, entries):
         tpu_msm_torch.msm_best(sl, (px, py), device=dev), expected,
         "msm_best 2^24 (streamed)"))
     peak = torch.cuda.max_memory_allocated()
-    launches = read_counts(11, MAIN_KERNELS)
-    want = {"scan_layout": chunks * groups, "scan_madd": chunks * groups,
-            "window_tail": chunks, "horner": 1}
+    launches = read_counts(11, MAIN_KERNELS, UNFUSED)
+    want = {"scan_madd_sorted": chunks * groups, "window_tail": chunks,
+            "horner": 1}
     if tpu_msm_torch.select_config(1 << chunk_log, dev).segment_starts in (
             "hist", "hist_cols"):
         want["digit_hist"] = chunks * groups
@@ -2107,8 +2255,8 @@ def phase_stream(dev, entries):
                              f"launches {launches}, expected {want}")
     log(11, f"msm_best n=2^{STREAM_LOG} == the 512-point reference (affine, "
         f"exact) through the streamed route: {chunks} chunks of "
-        f"2^{chunk_log}, G = {sh['g']} of {sh['w']} windows, scan and "
-        f"digit_hist launches {launches['scan_madd']} and "
+        f"2^{chunk_log}, G = {sh['g']} of {sh['w']} windows, sorted scan "
+        f"and digit_hist launches {launches['scan_madd_sorted']} and "
         f"{launches['digit_hist']} ({chunks} x {groups}); {dt:.4f} s from "
         f"numpy -> {n / dt:.1f} points/s; peak max_memory_allocated "
         f"{peak / 2**20:.1f} MiB")
@@ -2187,8 +2335,8 @@ def phase_hybrid(dev, inputs, expected):
             f"hybrid share {share:.4f}"))
         log(12, f"msm_hybrid n=2^20 share {share:.4f} == native engine "
             f"(affine, exact) in {dt:.4f} s")
-    read_counts(12, ("scan_layout", "scan_madd", "padd", "window_tail",
-                     "horner"))
+    read_counts(12, ("scan_madd_sorted", "padd", "window_tail", "horner"),
+                UNFUSED)
     alone = [db.host_seconds(lambda: expected_is(
         tpu_msm_torch.msm((px, py), sl, device=dev), expected[20], "msm"))
         for _ in range(3)]
@@ -2279,7 +2427,7 @@ def phase_tensors(dev, inputs, expected):
     dhalf = interop.limbs_to_device(half, half, half, dev)[0]
     expected_is(tpu_msm_torch.msm_best(dhalf, (dpx, dpy), device=dev),
                 native.msm(px, py, half), "msm_best on card tensors, half 0")
-    read_counts(14, MAIN_KERNELS)
+    read_counts(14, MAIN_KERNELS, UNFUSED)
     log(14, "msm and msm_best on (16, 2^20) int32 tensors on the card == "
         "native engine, with and without the zero filter")
 
@@ -2342,9 +2490,10 @@ def phase_sharded(dev, inputs, expected, entries):
     on cuda:0 in both collectives, each equal to the native engine, D = 1
     byte-identical to msm_device, each timed in turns with msm_device by
     CUDA events, the counters set to 0 before each run and read after it; (e)
-    every scan_layout, padd, padd_group and horner launch of those runs
-    recorded by shape and held against its plain version on that call's
-    inputs; (b)
+    every scan_madd_sorted, padd, padd_group and horner launch of those
+    runs recorded by shape and held against its plain version on that
+    call's inputs (scan_madd_sorted on its first 8 steps, and in full
+    against the unfused pair); (b)
     two processes of `tpu_msm_torch.parallel.distributed` over gloo, both
     on cuda:0, at 2^21 (2^20 points a rank), in both collectives, their
     digests equal to each other and to in-process msm_sharded over two
@@ -2365,7 +2514,7 @@ def phase_sharded(dev, inputs, expected, entries):
     ref = tpu_msm_torch.msm_device(*d, cfg)
     spy = RouteSpy()
     spy.targets = [(m, k) for m, k in spy.targets
-                   if k in ("scan_layout", "padd", "horner")]
+                   if k in ("scan_madd_sorted", "padd", "horner")]
     runs, per_run = {}, {}
     for shards in SHARDS:
         for coll in sharded.COLLECTIVES:
@@ -2377,7 +2526,7 @@ def phase_sharded(dev, inputs, expected, entries):
             reset_counts()
             res = run()
             expected_is(affine(res), expected[20], f"msm_sharded {name}")
-            launches = read_counts(15, MAIN_KERNELS)
+            launches = read_counts(15, MAIN_KERNELS, UNFUSED)
             if name.endswith(" D=1") and not all(
                     torch.equal(a, b) for a, b in zip(res, ref)):
                 raise AssertionError(f"msm_sharded {name}: bytes differ "
@@ -2398,8 +2547,9 @@ def phase_sharded(dev, inputs, expected, entries):
         entries[kernel]["sharded_shapes"] = shapes.get(kernel, [])
         entries[kernel]["sharded_launches"] = {
             name: counts[kernel] for name, counts in per_run.items()}
-    entries["scan_layout"]["sharded_shapes"] = shapes["scan_layout"]
-    log(15, f"every scan_layout, padd and horner launch of the sharded runs "
+    entries["scan_madd_sorted"]["sharded_shapes"] = shapes["scan_madd_sorted"]
+    log(15, f"every scan_madd_sorted, padd and horner launch of the sharded "
+        f"runs "
         f"== its plain version at each shape (or an earlier phase's, where "
         f"marked): {shape_list(shapes)}")
 
@@ -2544,12 +2694,12 @@ EXPORT_WINDOW_FANOUT = 64
 EXPORT_TURNS = 5
 
 
-def _loaded_and_eager(phase, what, fn, args, cfg, kernels):
+def _loaded_and_eager(phase, what, fn, args, cfg, kernels, absent=()):
     """One call of the loaded program `fn` and one of eager msm_device on
     `args`, each with the counters set to 0 just before it and read just
-    after; raises unless their (x, y, z) are bit-identical and every
-    kernel's launches equal. Returns (affine point, the loaded call's
-    launches)."""
+    after; raises unless their (x, y, z) are bit-identical, every kernel's
+    launches equal and none of `absent` launched. Returns (affine point,
+    the loaded call's launches)."""
     import torch
 
     import tpu_msm_torch
@@ -2557,11 +2707,11 @@ def _loaded_and_eager(phase, what, fn, args, cfg, kernels):
     reset_counts()
     got = fn(*args)
     torch.cuda.synchronize()
-    loaded = read_counts(phase, kernels)
+    loaded = read_counts(phase, kernels, absent)
     reset_counts()
     want = tuple(tpu_msm_torch.msm_device(*args, cfg))
     torch.cuda.synchronize()
-    eager = read_counts(phase, kernels)
+    eager = read_counts(phase, kernels, absent)
     if not (isinstance(got, tuple) and len(got) == 3
             and all(torch.equal(g, w) for g, w in zip(got, want))):
         raise AssertionError(f"{what}: the loaded program's (x, y, z) is not "
@@ -2613,8 +2763,8 @@ def phase_export(dev, inputs, expected, entries):
     process runs, at 2^20 with the tuned row on bench inputs: export_msm on
     cuda:0, saved to a temporary directory, loaded in this process and held
     against eager msm_device (bit for bit, and the launches of one call of
-    each) and the native engine (affine), and each scan_layout launch of
-    the loaded program held against the plain version on its own inputs
+    each) and the native engine (affine), and each scan_madd_sorted launch
+    of the loaded program held on its own inputs as check_route holds it
     (`op_calls`); after the fresh process ends, the two timed in turns by
     CUDA events, EXPORT_TURNS calls each. Returns the launches of one call
     of the loaded 2^20 program."""
@@ -2669,13 +2819,15 @@ def phase_export(dev, inputs, expected, entries):
                 f"them the port's operators")
             fn(*args)  # warm
             pt, launches = _loaded_and_eager(17, "n=2^20", fn, args, cfg,
-                                             MAIN_KERNELS)
+                                             MAIN_KERNELS, UNFUSED)
             expected_is(pt, expected[20], "the loaded program at 2^20")
-            _, calls = op_calls(lambda: fn(*args), "scan_layout")
+            _, calls = op_calls(lambda: fn(*args), "scan_madd_sorted")
             shapes = check_route(17, entries, calls)
-            entries["scan_layout"]["export_shapes"] = shapes["scan_layout"]
-            log(17, f"every scan_layout launch of the loaded program == its "
-                f"plain version on its own inputs: {shape_list(shapes)}")
+            entries["scan_madd_sorted"]["export_shapes"] = shapes[
+                "scan_madd_sorted"]
+            log(17, f"every scan_madd_sorted launch of the loaded program == "
+                f"the unfused pair and, on its first 8 steps, its plain "
+                f"version, on its own inputs: {shape_list(shapes)}")
             out, err = proc.communicate(timeout=300)
         finally:
             if proc.poll() is None:
@@ -2795,14 +2947,16 @@ def phase_benches(dev):
       and raises on a mismatch; the launches of its calls read, every
       kernel of the main path among them;
     * sort (b) at the tuned 2^20 row, last, since it ends with a profile of
-      msm_device: its `_sorted_scan_inputs` output bit for bit equal to the
-      one that msm_device's own call makes on the same inputs; its split
-      into the sort, the scan_layout launch and the rest."""
-    import tpu_msm_torch
+      msm_device: its `_sorted_scan_inputs` output bit for bit the sorted
+      digits and the scan_layout of the permutation that msm_device's own
+      first scan_madd_sorted launch takes on the same inputs; its split
+      into the sort, the scan_layout launch and the rest; no scan_layout
+      launch in msm_device's profile.
+
+    Returns the launches of sort (b), the path that launches scan_layout."""
     from tpu_msm_torch.benches import conversion_benchmark as conv
     from tpu_msm_torch.benches import msm_benchmark as msmb
     from tpu_msm_torch.benches import sort_benchmark as sortb
-    from tpu_msm_torch.ops import pippenger
     from tpu_msm_torch.utils import interop, preprocess
 
     n = 1 << BENCH_LOG
@@ -2868,7 +3022,7 @@ def phase_benches(dev):
             reset_counts()
             rows = _bench_lines(18, msmb.run, BENCH_LOG, MSM_BENCH_INSTANCES,
                                 device=dev)
-            read_counts(18, MAIN_KERNELS)
+            read_counts(18, MAIN_KERNELS, UNFUSED)
         finally:
             if saved is None:
                 del os.environ["TPU_MSM_CACHE_DIR"]
@@ -2882,44 +3036,69 @@ def phase_benches(dev):
         f"ms on the host clock, {device_row['median_event_ms']:.3f} ms by "
         f"CUDA events; native engine {cpu_row['ms']:.1f} ms")
 
+    return sort_b_check(dev)
+
+
+def sort_b_check(dev):
+    """Phase 18's sort (b) (phase_benches); returns its launches."""
+    import torch
+
+    import tpu_msm_torch
+    from tpu_msm_torch.benches import sort_benchmark as sortb
+    from tpu_msm_torch.ops import cuda_curve as cc
+    from tpu_msm_torch.ops import pippenger
+
     sort_b = {}
+    reset_counts()
     rec = _bench_lines(18, sortb.main_path_sort, BENCH_LOG, repeats=3,
                        device=dev, outputs=sort_b)
+    launches = read_counts(18, ("scan_layout",))
+    # msm_device's own first group: the arguments its sorted scan took.
     made = []
-    real = pippenger._sorted_scan_inputs
+    real = pippenger.scan_madd_sorted
 
     def spy(*args):
-        res = real(*args)
-        made.append(tuple(t.clone() for t in res))
-        return res
+        made.append(tuple(a.clone() if hasattr(a, "clone") else a
+                          for a in args))
+        return real(*args)
 
-    pippenger._sorted_scan_inputs = spy
+    pippenger.scan_madd_sorted = spy
     try:
-        cfg = tpu_msm_torch.select_config(n, dev)
-        tpu_msm_torch.msm_device(*sort_b["inputs"], cfg)
+        tpu_msm_torch.msm_device(*sort_b["inputs"], sort_b["cfg"])
     finally:
-        pippenger._sorted_scan_inputs = real
-    if not made or any(not bool((a == b).all()) or a.shape != b.shape
-                       for a, b in zip(made[0], sort_b["result"])):
+        pippenger.scan_madd_sorted = real
+    got = sort_b["result"]
+    perm, rows, negm, lanes = made[0]
+    want = (torch.sort(sort_b["args"][0], dim=1, stable=True)[0],
+            *cc.scan_layout(perm, rows, negm, lanes))
+    if any(a.shape != b.shape or not bool((a == b).all())
+           for a, b in zip(got, want)):
         raise AssertionError("sort (b): the bench's _sorted_scan_inputs "
-                             "differs from msm_device's first group")
+                             "differs from the layout of msm_device's first "
+                             "group's permutation")
+    if rec["msm_device_layout_launches"]:
+        raise AssertionError(f"sort (b): msm_device launched scan_layout "
+                             f"{rec['msm_device_layout_launches']} times")
     inside = rec["in_msm_device"]
     log(18, f"sort (b) at 2^{BENCH_LOG} ({rec['windows']} windows, "
-        f"{rec['lanes']} lanes) == msm_device's own first group, bit for "
-        f"bit; {rec['ms']:.4f} ms, profiled: sort {rec['sort_ms']:.4f}, "
-        f"scan_layout {rec['layout_ms']:.4f}, other {rec['other_ms']:.4f} ms "
-        f"in {rec['device_events']} device events; in msm_device sort "
-        f"{inside['sort_ms']:.4f}, scan_layout {inside['layout_ms']:.4f}, "
+        f"{rec['lanes']} lanes) == the layout of msm_device's own first "
+        f"group's permutation, bit for bit; {rec['ms']:.4f} ms, profiled: "
+        f"sort {rec['sort_ms']:.4f}, scan_layout {rec['layout_ms']:.4f}, "
+        f"other {rec['other_ms']:.4f} ms in {rec['device_events']} device "
+        f"events; msm_device launches no scan_layout (its scan reads the "
+        f"sorted rows itself); in msm_device sort {inside['sort_ms']:.4f}, "
         f"other {inside['other_ms']:.4f} ms; the call's torch kernels "
         f"{rec['share_of_torch']:.3f} of torch's own kernels' "
-        f"{rec['msm_device_torch_ms']:.3f} ms there")
+        f"{rec['msm_device_torch_ms']:.3f} ms there; scan_layout launches "
+        f"of the bench {launches['scan_layout']}")
+    return launches
 
 
 EC = "tpu_msm_torch/csrc/ec_kernels.cu"
 PC = "tpu_msm/ops/pallas_curve.py"
 # name: (source, the TPU kernels it replaces, the path its launches count)
 SOURCES = {
-    "scan_madd": (EC, f"{PC}:799", "main"),
+    "scan_madd": (EC, f"{PC}:799", "cli"),
     "padd": (EC, f"{PC}:1009", "main"),
     "padd_group": (EC, f"{PC}:1009", "per_window"),
     "window_tail": (EC, f"{PC}:1009", "main"),
@@ -2937,7 +3116,10 @@ SOURCES = {
                       "benches/montmul_benchmark.py:100", "roofline"),
     # No pallas_call: the JAX package's sort stage, left to XLA ("rank").
     "scan_layout": ("tpu_msm_torch/csrc/layout.cu",
-                    "tpu_msm/ops/pippenger.py:289", "main"),
+                    "tpu_msm/ops/pippenger.py:289", "sort_bench"),
+    # The scan with that stage's layout read, not written, before it.
+    "scan_madd_sorted": (EC, f"{PC}:799, tpu_msm/ops/pippenger.py:289",
+                         "main"),
 }
 PATHS = {"main": "msm_best at 2^12 and 2^20",
          "per_window": "msm at 2^20, 16384 scan lanes, both segment starts",
@@ -2945,7 +3127,10 @@ PATHS = {"main": "msm_best at 2^12 and 2^20",
          "golden": "msm on the card of every golden MSM case (n 16 to "
                    "1024, 8 or 64 scan lanes)",
          "roofline": "tpu_msm_torch.benches.montmul_benchmark at ilp 1 and "
-                     "4, then utils.profiling.roofline(20)"}
+                     "4, then utils.profiling.roofline(20)",
+         "sort_bench": "tpu_msm_torch.benches.sort_benchmark part (b), "
+                       "pippenger._sorted_scan_inputs at the tuned 2^20 "
+                       "row"}
 
 
 def main() -> int:
@@ -3026,7 +3211,7 @@ def main() -> int:
     lap(16)
     export_launches = phase_export(dev, inputs, expected, entries)
     lap(17)
-    phase_benches(dev)
+    launches["sort_bench"] = phase_benches(dev)
     lap(18)
     phase_profile(dev, more)
     phase_scan_rows_phases(dev, entries)

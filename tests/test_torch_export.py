@@ -130,7 +130,8 @@ def _op_cases():
     """Small CPU arguments for every operator: u16 limb rows (packed u32
     words for the scan and the layout), the launch arguments as the
     wrappers pass them on the CPU; horner at W = 1 too, where the plain
-    result is the input; the layout with and without masks."""
+    result is the input; the layout and the sorted scan with and without
+    masks."""
     rng = np.random.RandomState(11)
 
     def rows(*shape):
@@ -162,6 +163,8 @@ def _op_cases():
         ("digit_hist", (digits, 8, 0, 0, 0, 0, 0)),
         ("scan_layout", (perm, words(12, 24), negm, 4)),
         ("scan_layout", (perm, words(12, 16), None, 3)),
+        ("scan_madd_sorted", (perm, words(12, 24), negm, 4)),
+        ("scan_madd_sorted", (perm, words(12, 16), None, 3)),
     ]
 
 

@@ -116,7 +116,7 @@ def test_batched_scan_plain_equals_single_windows(g):
 
 @pytest.mark.parametrize("w,n_pad,budget,want", [
     (16, 1 << 20, 10 << 30, 16),   # 2^20 with an 80 GB card's budget
-    (16, 1 << 24, 10 << 30, 2),    # 2^24: two windows a group
+    (16, 1 << 24, 10 << 30, 3),    # 2^24: three windows a group
     (32, 1024, 5 * 1024 * pippenger.GROUP_BYTES_PER_POINT, 5),
     (32, 1024, 1, 1),              # below one window: still one
     (3, 64, None, 3),              # the CPU's own budget

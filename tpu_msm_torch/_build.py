@@ -131,6 +131,7 @@ def load() -> ctypes.CDLL:
                 "tpu_msm_scan_madd_rows": [vp] * 6 + [i32, i32, i32, vp],
                 "tpu_msm_montmul_chain": [vp] * 3 + [i64, i32, i32, i32, vp],
                 "tpu_msm_scan_layout": [vp] * 5 + [i32, i64, i32, vp],
+                "tpu_msm_scan_madd_sorted": [vp] * 4 + [i32, i64, i32, vp],
             }
             for name, argtypes in signatures.items():
                 fn = getattr(lib, name)

@@ -23,10 +23,13 @@ The whole call is timed as in (a). On the card one call is then profiled
 that launched each kernel: `aten::sort`, the `tpu_msm_torch::scan_layout`
 operator (the scan_layout kernel, which gathers the sorted points' rows
 into the scan's layout), and the rest. Then one `msm_device` call at the
-same inputs is profiled: the call's kernels, found there as the same run
-of names, give the same split inside msm_device, and the call's own torch
-kernels (the sort's) give their share of torch's own kernels' device ms
-in that profile.
+same inputs is profiled: the call's kernels but the layout's, found there
+as the same run of names, give the same split inside msm_device, and the
+call's own torch kernels (the sort's) give their share of torch's own
+kernels' device ms in that profile. The main path no longer launches
+scan_layout: its scan (scan_madd_sorted) reads the sorted points itself,
+so the layout's part inside msm_device is 0 and its launches there
+(`msm_device_layout_launches`) are 0.
 
 One JSON line a measurement, with the card's name and power limit. Runs
 on the card unless given `--device cpu`, and raises without one.
@@ -215,16 +218,21 @@ def main_path_sort(log_n: int = 20, repeats: int = 3, device=None, cfg=None,
         events = trace.trace_events(
             lambda: tpu_msm_torch.msm_device(*inputs, cfg))
         dev = trace.device_events(events)
-        i = find_run([e["name"] for e in dev], [p[0] for p in parts])
+        # msm_device launches no layout: the rest of the call's events.
+        run = [p for p in parts if p[3] != "layout_ms"]
+        i = find_run([e["name"] for e in dev], [p[0] for p in run])
         # The same events inside msm_device, with that profile's times.
         inside = [(p[0], p[1], float(e.get("dur", 0)) / 1e3, p[3])
-                  for p, e in zip(parts, dev[i:])]
+                  for p, e in zip(run, dev[i:])]
         prof = trace.summarize(events)
         torch_ms, torch_launches = prof["kernels"]["torch"]
         # torch's own kernels of the call (the sort's; not scan_layout's).
         kernels_ms = sum(ms for name, cat, ms, _ in inside if cat == "kernel"
                          and trace.kernel_name(name) == "torch")
         rec.update(in_msm_device=split(inside),
+                   msm_device_layout_launches=sum(
+                       trace.kernel_name(e["name"]) == "scan_layout_kernel"
+                       for e in dev),
                    msm_device_torch_ms=torch_ms,
                    msm_device_torch_launches=torch_launches,
                    msm_device_busy_ms=prof["busy_ms"],

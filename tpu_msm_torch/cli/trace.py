@@ -46,7 +46,8 @@ KERNELS = ("scan_madd_kernel", "scan_madd_rows_kernel",
            "padd_kernel", "padd_group_kernel", "window_tail_kernel",
            "horner_kernel", "pmadd_kernel", "pmadd_group_kernel",
            "fold_add_kernel", "fold_add_group_kernel", "jac_madd_kernel",
-           "jac_add_kernel", "digit_hist_kernel", "scan_layout_kernel")
+           "jac_add_kernel", "digit_hist_kernel", "scan_layout_kernel",
+           "scan_madd_sorted_kernel")
 _DEVICE_CATS = {"kernel": None, "gpu_memcpy": "copies", "gpu_memset": "copies"}
 
 ROUTES = {"rule": pippenger.window_sums,

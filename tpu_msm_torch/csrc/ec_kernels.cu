@@ -17,6 +17,10 @@
 //   tpu_msm_jac_madd        <- madd_packed
 //   tpu_msm_jac_add         <- add_packed
 //   tpu_msm_scan_madd_rows  <- scan_madd_packed
+//   tpu_msm_scan_madd_sorted <- scan_madd_packed_u16_f15d with the sort
+//                              stage's layout before it (no pallas_call:
+//                              tpu_msm/ops/pippenger.py:271-307,
+//                              `_sorted_scan_inputs`); the main path's scan
 //
 // What bounds them on the card: the integer multiply pipe. A Montgomery
 // product (bn254.cuh, on PTX carry chains) is 128 wide 32x32->64 products
@@ -129,6 +133,7 @@
 
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cstdint>
 
 #include "bn254.cuh"
@@ -174,6 +179,128 @@ __global__ void __launch_bounds__(kThreads, kScanMinBlocks)
     store_u16_rows(out + 16 * plane, plane, off, acc.y);
     store_u16_rows(out + 32 * plane, plane, off, acc.z);
   }
+}
+
+// The sorted scan (scan_madd_sorted_kernel): scan_madd_kernel's per-lane
+// prefix sum, each step's operand read from the point-major table in sort
+// order, so that the sort stage's layout (csrc/layout.cu) is never written.
+// Grid, launch bounds, step body and output as scan_madd_kernel; lane l of
+// window g (blockIdx.y) takes at step k the point src = perm[g, l * steps
+// + k], its x half-row rows[src, 0:8] and its y half-row rows[src, 8:16],
+// or -y, rows[src, 16:24], where negm[g, src]; an index outside [0, n_pad)
+// is the (0, 0) infinity and reads nothing.
+//
+// Each step's operand is 64 bytes of a random row of the table (64 or 96
+// MiB at 2^20, past the 50 MB L2): about a microsecond of latency against
+// a step of about 15 us of mixed add. The scan has no registers to spare
+// for operands in flight (116 of the 128 that kScanMinBlocks allows), so
+// they go to shared memory: each thread keeps kSortedDepth steps in flight
+// in its own slots of a ring, each step four 16-byte cp.async copies (the
+// two aligned 32-byte sectors of its half-rows; zero-filled, with no read,
+// for an index outside the table) and one commit group, and waits for the
+// oldest group before its step reads the slot. The ring is laid out
+// [step][int4][thread], so that a warp's copies and reads of one int4 touch
+// 512 consecutive bytes, without bank conflicts: 32 KiB a block at depth 4.
+// A thread reads only the slots it filled, so no barrier is needed. The
+// permutation (8 bytes a step, a lane's steps consecutive) is read one step
+// ahead of the copies into registers, the negation byte (1 MiB a window,
+// L2-resident) once the index is known, after the step's add. ptxas for
+// sm_90a (CUDA 12.8): 122 registers (120 with signed digits), 32768 bytes
+// of shared memory, no spills or stack, so 4 blocks an SM as the scan. On
+// the H100 it runs at scan_madd_kernel's own speed on the same shapes, about
+// 0.8 of the time of scan_layout and scan_madd_kernel together (PERF.md §6).
+constexpr int kSortedDepth = 4;
+constexpr int kStepVecs = 4;  // int4s a step: the x and the y half-row
+
+__device__ __forceinline__ void cp_async_16(void* smem, const void* gmem,
+                                            int src_bytes) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(gmem), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most kPending of this thread's commit groups are in flight.
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+template <bool kSigned>
+__global__ void __launch_bounds__(kThreads, kScanMinBlocks)
+    scan_madd_sorted_kernel(const long long* __restrict__ perm,
+                            const int4* __restrict__ rows,
+                            const uint8_t* __restrict__ negm,
+                            uint32_t* __restrict__ out, long long n_pad,
+                            int steps, int lanes) {
+  constexpr int kRowVecs = kSigned ? 6 : 4;  // int4s a row: 24 or 16 words
+  __shared__ int4 ring[kSortedDepth][kStepVecs][kThreads];
+  const int t = threadIdx.x;
+  const int lane = blockIdx.x * kThreads + t;
+  if (lane >= lanes) return;
+  const size_t plane = (size_t)steps * lanes;
+  const long long* lperm = perm + blockIdx.y * n_pad + (long long)lane * steps;
+  const uint8_t* wneg = kSigned ? negm + blockIdx.y * n_pad : nullptr;
+  out += blockIdx.y * 48 * plane;
+
+  // Step k's row of the table, or -1: past the last step, or outside it.
+  const auto point = [&](long long s) -> int {
+    return s >= 0 && s < n_pad ? (int)s : -1;
+  };
+  const auto index = [&](int k) -> long long {
+    return k < steps ? __ldg(lperm + k) : -1;
+  };
+  // The int4 of the row where the step's y (2) or -y (4) half-row starts.
+  const auto y_vec = [&](int src) -> int {
+    if constexpr (kSigned) return src >= 0 && __ldg(wneg + src) ? 4 : 2;
+    return 2;
+  };
+  const auto fetch = [&](int slot, int src, int yv) {
+    const int4* r = rows + (size_t)(src < 0 ? 0 : src) * kRowVecs;
+    const int bytes = src < 0 ? 0 : 16;
+    cp_async_16(&ring[slot][0][t], r, bytes);
+    cp_async_16(&ring[slot][1][t], r + 1, bytes);
+    cp_async_16(&ring[slot][2][t], r + yv, bytes);
+    cp_async_16(&ring[slot][3][t], r + yv + 1, bytes);
+    cp_async_commit();
+  };
+
+#pragma unroll
+  for (int k = 0; k < kSortedDepth - 1; ++k) {
+    const int src = point(index(k));
+    fetch(k, src, y_vec(src));
+  }
+  int next = point(index(kSortedDepth - 1));
+  int next_y = y_vec(next);
+  Proj acc = proj_infinity();
+  for (int k = 0; k < steps; ++k) {
+    // Step k + depth - 1 into the slot step k - 1 read (a group is
+    // committed every step, empty of reads past the last one).
+    fetch((k + kSortedDepth - 1) % kSortedDepth, next, next_y);
+    const long long ahead = index(k + kSortedDepth);
+    cp_async_wait<kSortedDepth - 1>();  // step k's group has landed
+    const int slot = k % kSortedDepth;
+    const int4 v0 = ring[slot][0][t], v1 = ring[slot][1][t];
+    const int4 v2 = ring[slot][2][t], v3 = ring[slot][3][t];
+    const Fp qx = {{(uint32_t)v0.x, (uint32_t)v0.y, (uint32_t)v0.z,
+                    (uint32_t)v0.w, (uint32_t)v1.x, (uint32_t)v1.y,
+                    (uint32_t)v1.z, (uint32_t)v1.w}};
+    const Fp qy = {{(uint32_t)v2.x, (uint32_t)v2.y, (uint32_t)v2.z,
+                    (uint32_t)v2.w, (uint32_t)v3.x, (uint32_t)v3.y,
+                    (uint32_t)v3.z, (uint32_t)v3.w}};
+    acc = proj_madd_complete(acc, qx, qy);
+    next = point(ahead);
+    next_y = y_vec(next);
+    const size_t off = (size_t)k * lanes + lane;
+    store_u16_rows(out, plane, off, acc.x);
+    store_u16_rows(out + 16 * plane, plane, off, acc.y);
+    store_u16_rows(out + 32 * plane, plane, off, acc.z);
+  }
+  cp_async_wait<0>();
 }
 
 // Element i of three (16, stride) u16-row coordinate arrays.
@@ -588,6 +715,29 @@ int tpu_msm_scan_madd(const uint32_t* gx, const uint32_t* gy, uint32_t* out,
   const dim3 grid(blocks_for(lanes), (unsigned)windows);
   scan_madd_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(gx, gy, out,
                                                                 steps, lanes);
+  return (int)cudaGetLastError();
+}
+
+// rows: (n_pad, 24) words [x | y | -y] where negm is given, else (n_pad,
+// 16) [x | y], 16-byte aligned; perm and negm: (windows, n_pad); out:
+// (windows, 48, n_pad / lanes, lanes).
+int tpu_msm_scan_madd_sorted(const long long* perm, const int* rows,
+                             const uint8_t* negm, uint32_t* out, int windows,
+                             long long n_pad, int lanes, void* stream) {
+  if (windows <= 0 || windows > 65535 || lanes <= 0 || n_pad <= 0 ||
+      n_pad % lanes || n_pad > INT_MAX ||
+      reinterpret_cast<uintptr_t>(rows) % sizeof(int4))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(blocks_for(lanes), (unsigned)windows);
+  const int steps = (int)(n_pad / lanes);
+  const int4* table = reinterpret_cast<const int4*>(rows);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (negm != nullptr)
+    scan_madd_sorted_kernel<true><<<grid, kThreads, 0, s>>>(
+        perm, table, negm, out, n_pad, steps, lanes);
+  else
+    scan_madd_sorted_kernel<false><<<grid, kThreads, 0, s>>>(
+        perm, table, negm, out, n_pad, steps, lanes);
   return (int)cudaGetLastError();
 }
 

@@ -31,6 +31,9 @@ There is no fallback from one to the other.
   scan_layout     scan_layout_kernel     no Pallas kernel: the gather of
                   (csrc/layout.cu)       pippenger.py's `_sorted_scan_inputs`
                                          ("rank", :289-297), left to XLA
+  scan_madd_      scan_madd_sorted_      scan_madd_packed_u16_f15d (:799)
+  sorted          kernel                 after that gather: scan_layout and
+                                         scan_madd in one kernel
 
 padd, fold_add and pmadd each launch one of two kernels: one thread an
 element (padd_kernel, fold_add_kernel, pmadd_kernel; for fold_add an
@@ -40,11 +43,14 @@ for the width and the card's SM count. scan_madd_rows launches its three
 kernels (chunk totals, their running sums, each chunk's scan) at the K
 chunks of the step axis that `scan_rows_chunks` gives, or the caller.
 
-The fused MSM path runs scan_layout and scan_madd (one launch each per
-group of windows; scan_layout writes what scan_madd reads), padd,
-fold_add, window_tail and horner; the per-window path runs pmadd (one
-launch per scan step), padd, fold_add, window_tail (once per window) and
-horner. jac_madd, jac_add
+The fused MSM path runs scan_madd_sorted (one launch per group of
+windows: the scan, each step's point read from the point-major table in
+sort order), padd, fold_add, window_tail and horner; the per-window path
+runs pmadd (one launch per scan step), padd, fold_add, window_tail (once
+per window) and horner. scan_madd_sorted computes scan_madd(*scan_layout(
+...)) without writing the layout; the pair stays as the reference it is
+held to on the card, scan_layout in the sort bench
+(`benches/sort_benchmark.py` (b)). scan_madd, jac_madd, jac_add
 and scan_madd_rows run in the profiler's kernel check
 (`tpu_msm_torch.cli.profiler --check-kernels`), as their TPU kernels did.
 montmul_chain runs in the field core's microbench
@@ -70,8 +76,9 @@ padd, fold_add and pmadd; `<wrapper>.group_launches` those of the group
 kernel alone) and `<plain>.calls` counts plain-version calls; callers may reset
 them to 0. The operators' implementations count, so the launches of a
 program that `torch.export` saved and loaded are counted too.
-Operands are int32 tensors that carry u32 bit patterns, but scan_layout's
-permutation (int64, as torch.sort gives it) and masks (bool).
+Operands are int32 tensors that carry u32 bit patterns, but the
+permutation (int64, as torch.sort gives it) and masks (bool) of scan_layout
+and scan_madd_sorted.
 """
 
 from __future__ import annotations
@@ -209,23 +216,24 @@ scan_madd.launches = 0
 # gather; csrc/layout.cu).
 # --------------------------------------------------------------------------
 
-def _check_scan_layout(perm, rows, negm, lanes: int) -> None:
+def _check_scan_layout(perm, rows, negm, lanes: int,
+                       name: str = "scan_layout") -> None:
     if perm.dim() != 2 or perm.dtype != _I64:
-        raise ValueError(f"scan_layout perm must be (G, n_pad) int64, got "
+        raise ValueError(f"{name} perm must be (G, n_pad) int64, got "
                          f"{tuple(perm.shape)} {perm.dtype}")
     g, n_pad = perm.shape
     width = 16 if negm is None else 24
     if rows.dim() != 2 or rows.dtype != _I32 \
             or tuple(rows.shape) != (n_pad, width):
-        raise ValueError(f"scan_layout rows must be ({n_pad}, 16) int32, "
+        raise ValueError(f"{name} rows must be ({n_pad}, 16) int32, "
                          f"or ({n_pad}, 24) with negm; got "
                          f"{tuple(rows.shape)} {rows.dtype}")
     if negm is not None and (negm.shape != perm.shape
                              or negm.dtype != torch.bool):
-        raise ValueError(f"scan_layout negm must be {tuple(perm.shape)} "
+        raise ValueError(f"{name} negm must be {tuple(perm.shape)} "
                          f"bool, got {tuple(negm.shape)} {negm.dtype}")
     if lanes < 1 or n_pad % lanes:
-        raise ValueError(f"scan_layout lanes {lanes} must divide n_pad "
+        raise ValueError(f"{name} lanes {lanes} must divide n_pad "
                          f"{n_pad}")
 
 
@@ -298,6 +306,65 @@ def scan_layout(perm: torch.Tensor, rows: torch.Tensor, negm, lanes: int):
 
 
 scan_layout.launches = 0
+
+
+# --------------------------------------------------------------------------
+# scan_madd_sorted: the scan over the sorted points, read from the
+# point-major table (the main path's scan).
+# --------------------------------------------------------------------------
+
+def scan_madd_sorted_plain(perm: torch.Tensor, rows: torch.Tensor, negm,
+                           lanes: int) -> torch.Tensor:
+    """scan_madd_plain(*scan_layout_plain(perm, rows, negm, lanes)): the
+    (G, 48, steps, lanes) running sums of each window's points in the order
+    of its permutation, lane l taking sorted positions l·steps ..
+    (l + 1)·steps - 1 (arguments as scan_layout_plain's)."""
+    scan_madd_sorted_plain.calls += 1
+    return scan_madd_plain(*scan_layout_plain(perm, rows, negm, lanes))
+
+
+scan_madd_sorted_plain.calls = 0
+
+
+def _scan_madd_sorted_fake(perm, rows, negm, lanes):
+    return torch.empty((perm.shape[0], 48, perm.shape[1] // lanes, lanes),
+                       dtype=_I32, device=perm.device)
+
+
+def _scan_madd_sorted_cuda(perm, rows, negm, lanes):
+    _check_scan_layout(perm, rows, negm, lanes, "scan_madd_sorted")
+    out = _scan_madd_sorted_fake(perm, rows, negm, lanes)
+    g, n_pad = perm.shape
+    if g and n_pad:
+        _build.launch("tpu_msm_scan_madd_sorted", perm.device, perm, rows,
+                      negm, out, g, n_pad, lanes,
+                      dtypes=(_I64, _I32, torch.bool))
+        scan_madd_sorted.launches += 1
+    return out
+
+
+def _scan_madd_sorted_cpu(perm, rows, negm, lanes):
+    _check_scan_layout(perm, rows, negm, lanes, "scan_madd_sorted")
+    return scan_madd_sorted_plain(perm, rows, negm, lanes)
+
+
+_SCAN_MADD_SORTED = library.define(
+    "scan_madd_sorted(Tensor perm, Tensor rows, Tensor? negm, int lanes) -> "
+    "Tensor",
+    cuda=_scan_madd_sorted_cuda, cpu=_scan_madd_sorted_cpu,
+    fake=_scan_madd_sorted_fake)
+
+
+def scan_madd_sorted(perm: torch.Tensor, rows: torch.Tensor, negm,
+                     lanes: int) -> torch.Tensor:
+    """Kernel wrapper of scan_madd_sorted_plain (same arguments and result):
+    one launch for all G windows; the layout scan_layout would write is
+    never written."""
+    _build.on_cuda(perm, rows, *(() if negm is None else (negm,)))
+    return _SCAN_MADD_SORTED(perm, rows, negm, lanes)
+
+
+scan_madd_sorted.launches = 0
 
 
 # --------------------------------------------------------------------------

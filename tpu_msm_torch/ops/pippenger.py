@@ -10,9 +10,9 @@ Two routes compute the window sums, as in the JAX package:
 
 * the fused route (`_fused_sums`): `_window_heavy` per group of windows
   (`window_group_size`; for the group one stable digit sort, one
-  scan_layout launch that gathers the sorted points' rows into the scan's
-  layout, one scan launch, one histogram launch and one gather of the
-  prefix sums at the bucket boundaries), then
+  scan_madd_sorted launch, the scan that reads each step's point from the
+  point-major table in sort order, one histogram launch and one gather of
+  the prefix sums at the bucket boundaries), then
   `_sides_batched` over all windows (inter-lane carries, the X(s_b) fold
   and rolled tree, the window_tail kernel);
 * the per-window route (`_per_window_sums`, the JAX package's `_msm_window`
@@ -33,10 +33,10 @@ on the JAX CPU backend, and the fused ones projectively equal to it.
 `horner_fold` then joins the windows (the horner kernel). Every other EC
 add goes through `ec_add` or `ec_madd` (the padd and pmadd kernels on the
 card, their plain versions on the CPU), every fold through the fold_add
-kernel. The fused route's layout of the sorted points is the scan_layout
-kernel, though the JAX package left that stage to XLA: a torch gather
-reads 4 bytes an index, the kernel a point's 64-byte row. Everything else
-is plain torch, as the JAX package left it to XLA.
+kernel. The fused route's scan reads the sorted points itself, though the
+JAX package left their layout to XLA: a point's 64-byte row, in place of
+a layout written and read back. Everything else is plain torch, as the JAX
+package left it to XLA.
 
 With `cfg.glv` both routes first split every scalar by the GLV
 endomorphism (`_glv_split`, `pippenger.py:583-598` of the JAX package):
@@ -58,7 +58,8 @@ import torch
 
 from tpu_msm_torch.ops import curve, field, glv, hist, u256
 from tpu_msm_torch.ops.cuda_curve import (fold_add, horner, padd, pmadd,
-                                          scan_layout, scan_madd, window_tail)
+                                          scan_layout, scan_madd_sorted,
+                                          window_tail)
 from tpu_msm_torch.ops.curve import AffinePoint, ProjPoint
 from tpu_msm_torch.utils.config import MsmConfig, select_config
 
@@ -66,12 +67,10 @@ from tpu_msm_torch.utils.config import MsmConfig, select_config
 _XYZ = (slice(0, 16), slice(16, 32), slice(32, 48))
 
 # What one window of a `_window_heavy` group holds per padded point: the
-# sorted digit, the sort's int64 permutation, the point's 16 words in the
-# scan's layout (sgx, sgy) and the scan's 48 output rows. The permutation
-# dies once the layout is written, before the scan's output exists, so this
-# is 8 bytes above the peak. The point-major table that the layout reads
+# sorted digit, the sort's int64 permutation (which the scan reads) and the
+# scan's 48 output rows. The point-major table that the scan reads
 # (`scan_operands`, 64 or 96 bytes a point) is one for all the groups.
-GROUP_BYTES_PER_POINT = 4 * (1 + 16) + 8 + 4 * 48
+GROUP_BYTES_PER_POINT = 4 + 8 + 4 * 48
 # The group budget on the CPU, which has no device memory to take 1/8 of.
 CPU_GROUP_BUDGET = 1 << 30
 
@@ -158,7 +157,9 @@ def _sorted_scan_inputs(digits, negm, rows, lanes: int):
     `torch.sort` of the digits, then one `scan_layout` launch, which takes
     each column's point as one row of the point-major table (the JAX
     package's "rank" strategy, `pippenger.py:289-297`; both JAX `sort_impl`
-    values give this permutation).
+    values give this permutation). The main path no longer writes this
+    layout (`_window_heavy` hands the permutation to scan_madd_sorted);
+    the sort bench (b) and the layout's tests call this.
 
     digits: (G, n_pad); negm: (G, n_pad) negation masks or None; rows:
     (n_pad, 16) packed words of each point, [x | y], or (n_pad, 24)
@@ -176,8 +177,8 @@ def window_group_size(w: int, n_pad: int, device) -> int:
     The budget is 1/8 of the card's memory
     (`torch.cuda.get_device_properties(device).total_memory`), or the fixed
     CPU_GROUP_BUDGET on the CPU. At 2^20 points on the H100 that is all 16
-    windows of c = 16 in one group (about 4.5 GB of transients, one scan
-    launch of 1024 blocks); at 2^24 two windows a group."""
+    windows of c = 16 in one group (about 3.4 GB of transients, one scan
+    launch of 1024 blocks); at 2^24 three windows a group."""
     return max(1, min(w, group_budget(device)
                       // (n_pad * GROUP_BYTES_PER_POINT)))
 
@@ -219,29 +220,30 @@ def _segment_starts(digits, m: int, cfg: MsmConfig):
 
 def _window_heavy(digits, negm, rows, n: int, cfg: MsmConfig):
     """The heavy stages of a group of G windows, each stage once for the
-    group: the sort, the scan_layout launch and the scan launch, the segment
-    starts (one digit_hist launch with "hist"), and one gather of the prefix
-    sums at the bucket boundaries. digits, negm: (G, n_pad) rows of the
-    group's windows (negm None for unsigned digits); rows the point-major
-    table as `_sorted_scan_inputs` takes it.
+    group: the sort, the scan launch (scan_madd_sorted, which reads each
+    step's point from `rows` by the sort's permutation), the segment starts
+    (one digit_hist launch with "hist"), and one gather of the prefix sums
+    at the bucket boundaries. digits, negm: (G, n_pad) rows of the group's
+    windows (negm None for unsigned digits); rows the point-major table as
+    `_sorted_scan_inputs` takes it.
 
     Returns the group's small arrays, stacked: the lane totals
     (G, 48, lanes), the prefix sums at the m+1 queries s_1..s_m, n
     (G, 48, m+1), the query lanes and the zero-query mask (G, m+1). The
-    group's O(G·n) transients die here, before the next group starts: at
-    most GROUP_BYTES_PER_POINT (268) bytes a point and window, the sorted
-    digits, the sort's int64 permutation (until the layout is written), the
-    16 words of each point in the scan's layout and the 48-row scan output,
-    which `window_group_size` keeps within 1/8 of the card's memory (about
-    4.5 GB for 16 windows at 2^20; at 2^24 a group of two windows holds
-    about 9 GB)."""
+    group's O(G·n) transients die here, before the next group starts:
+    GROUP_BYTES_PER_POINT (204) bytes a point and window, the sorted
+    digits, the sort's int64 permutation and the 48-row scan output, which
+    `window_group_size` keeps within 1/8 of the card's memory (about 3.4 GB
+    for 16 windows at 2^20; at 2^24 a group of three windows holds about
+    10 GB)."""
     m = cfg.buckets_per_window()
     g = digits.shape[0]
     lanes = cfg.scan_lanes
     steps = digits.shape[1] // lanes
-    sorted_digits, sgx, sgy = _sorted_scan_inputs(digits, negm, rows, lanes)
-    ys = scan_madd(sgx, sgy).view(g, 48, steps * lanes)  # one launch
-    del sgx, sgy
+    sorted_digits, perm = torch.sort(digits, dim=1, stable=True)
+    ys = scan_madd_sorted(perm, rows, negm, lanes).view(
+        g, 48, steps * lanes)  # one launch
+    del perm
     # "hist" is order-free: it counts the unsorted digits.
     starts = _segment_starts(
         digits if cfg.segment_starts == "hist" else sorted_digits, m, cfg)
