@@ -10,12 +10,12 @@ C++ engine's result exactly:
 
   * the main path: `tpu_msm_torch.msm_best` at n = 2^12 and n = 2^20 on
     bench-style inputs, with the tuned row `select_config` reads from the
-    autotune table (the fused route: scan_madd_sorted and digit_hist over
-    groups of windows, padd, fold_add, window_tail, horner; no scan_layout
-    or scan_madd launch, which the counts assert);
+    autotune table (the fused route: digit_sort, scan_madd_sorted and
+    digit_hist over groups of windows, padd, fold_add, window_tail, horner;
+    no scan_layout or scan_madd launch, which the counts assert);
   * the per-window path: `tpu_msm_torch.msm` at n = 2^20 with 16384 scan
-    lanes, once with each segment-start option (pmadd, padd, fold_add,
-    digit_hist, window_tail, horner);
+    lanes, once with each segment-start option (digit_sort, pmadd, padd,
+    fold_add, digit_hist, window_tail, horner);
   * the profiler CLI: `--check-kernels` (every kernel, among them
     jac_madd, jac_add and scan_madd_rows) and `20 1 check 1`, each in a
     subprocess;
@@ -72,18 +72,30 @@ C++ engine's result exactly:
     2^16-2^22 (against np.sort and the stable np.argsort's gather) and part
     (b) at the tuned 2^20 row (its `_sorted_scan_inputs` layout bit for
     bit that of the permutation `msm_device`'s own first scan takes; a
-    profiled call split into its sort, its scan_layout launch and the rest,
-    the sort's share of torch's own kernels in a profiled `msm_device`,
-    which launches no scan_layout), and
+    profiled call split into its digit sort, its scan_layout launch and
+    the rest, the call's share of torch's own kernels in a profiled
+    `msm_device`, which launches no scan_layout), and
     `msm_benchmark` at 2^20 over 2 instances (instance 0 against the native
     engine); their JSON lines logged as phase 18's lines.
 
 Phase 5 also runs the CLI's `22 1 stream 1` and `20 1 hybrid 1`, each of
 which holds its result against the native engine.
 
-Phase 2 holds scan_madd_sorted (the main path's scan, which reads each
-step's point from the point-major table in sort order) against its plain
-version at a small shape (2 windows, 8 steps, 1024 lanes, signed and
+Phase 2 holds digit_sort (csrc/radix_sort.cu, the sort stage's stable
+LSD radix sort, whose int32 permutation the scans read) against its plain
+version, torch.sort(stable=True), bit for bit, the sorted keys and the
+permutation, at each shape the paths give it: the four groups below (the
+tuned row's 17-bit digits, MsmConfig()'s signed 16-bit ones, the streamed
+chunk's group, the 2^12 call's 9-bit ones), the per-window route's
+(1, 2^20) and the edges (a ragged row, all keys equal, all the sentinel,
+9 and 18 bits); it times the kernel by CUDA graph in turns with
+torch.sort (library_ms) at the tuned row and the streamed group, beside
+the bound (the keys read and the permutation written once). Phases 3, 4,
+8, 10-15 and 17 count its launches on each route (one a window group, one
+a window on the per-window route), and 11, 13, 15 and 17 hold it on each
+route's own inputs. Phase 2 also holds scan_madd_sorted (the main path's scan, which
+reads each step's point from the point-major table in sort order) against
+its plain version at a small shape (2 windows, 8 steps, 1024 lanes, signed and
 unsigned, with indices outside the table), and against the unfused pair
 it replaced on the main path, scan_madd(scan_layout(...)), bit for bit,
 at each shape the paths give it: the tuned 2^20 row, MsmConfig()'s signed
@@ -122,7 +134,8 @@ the fused route at the per-window path's 16384 lanes, which the route rule
 does not take there. Phase 6, last so that no timing runs after the
 profiler, profiles `msm_device` at 2^20 with the tuned row and on each
 route, and with and without GLV at 2^18 and 2^20 (`tpu_msm_torch.cli.trace`):
-the device's busy time, idle share and time per kernel. Beside each
+the device's busy time, idle share and time per kernel; and splits the
+tuned row's torch kernels by the op that launched them. Beside each
 kernel's time stand its bound (the larger of its 32-bit integer multiplies
 over the card's rate and its bytes over the memory rate, counted from this
 run's inputs) and, for the histogram, `torch.bincount`'s and
@@ -514,13 +527,16 @@ KERNEL_FUNCTIONS = ("scan_madd_rows_kernel", "scan_madd_rows_totals_kernel",
                     "horner_kernel", "fold_add_group_kernel",
                     "fold_add_kernel", "digit_hist_kernel",
                     "montmul_chain_kernel", "scan_layout_kernel",
-                    "scan_madd_sorted_kernel")
+                    "scan_madd_sorted_kernel", "radix_count_kernel",
+                    "radix_scan_kernel", "radix_scatter_kernel")
 
 
 def phase_build():
     """Builds the kernels and prints each one's ptxas registers, spills and
-    stack frame."""
+    stack frame. Returns the library's SASS counts
+    (montmul_benchmark.sass_counts), which phases 2 and 7 read."""
     from tpu_msm_torch import _build
+    from tpu_msm_torch.benches import montmul_benchmark as mb
 
     res = _build.build()
     log(1, f"build: {'compiled' if res['built'] else 'up to date'} in "
@@ -531,17 +547,22 @@ def phase_build():
             # Lines that follow a device function's header are not a kernel's.
             kernel = next((k for k in KERNEL_FUNCTIONS if k in line), None)
             # digit_hist_kernel<u16>, scan_layout_kernel<signed>,
-            # scan_madd_sorted_kernel<signed>: the mangled template argument.
+            # scan_madd_sorted_kernel<signed>, radix_scatter_kernel<first,
+            # keys>: the mangled template arguments.
             args = re.search(
                 r"(digit_hist|scan_layout|scan_madd_sorted)_kernelILb(\d)E",
                 line)
             if args:
                 what = "u16" if args[1] == "digit_hist" else "signed"
                 kernel += f"<{what} {args[2]}>"
+            args = re.search(r"radix_scatter_kernelILb(\d)ELb(\d)E", line)
+            if args:
+                kernel += "<first {} keys {}>".format(*args.groups())
         elif kernel and ("registers" in line or "spill" in line):
             detail = line.replace("ptxas info    :", "").strip()
             log(1, f"ptxas {kernel}: {detail}")
     _build.load()
+    return mb.sass_counts()
 
 
 def main_shapes(dev, log_n=20):
@@ -568,12 +589,12 @@ def main_shapes(dev, log_n=20):
             "c": cfg.window_bits, "signed": cfg.signed_digits}
 
 
-def phase_kernels(dev, scalars):
+def phase_kernels(dev, scalars, sass):
     """Each kernel against its plain version (bit-identical): first on edge
     lanes, then at every shape the main path at 2^20 gives it with the
     tuned row (main_shapes), where both are also timed; the histogram on
-    the window digits of `scalars`, bench.py's (16, 2^20) scalar limbs.
-    Returns the kernels' JSON entries."""
+    the window digits of `scalars`, bench.py's (16, 2^20) scalar limbs;
+    `sass` phase_build's SASS counts. Returns the kernels' JSON entries."""
     import torch
 
     from tpu_msm_torch.ops import cuda_curve as cc
@@ -733,14 +754,15 @@ def phase_kernels(dev, scalars):
     entries["padd"].update(first, other_shapes=others)
     *others, first = recs["padd_group"]
     entries["padd_group"].update(first, other_shapes=others)
-    phase_tail(dev, entries, sh, big)
+    phase_tail(dev, entries, sh, big, sass)
     return entries
 
 
 def layout_work(g, n_pad, row_words, signed):
-    """scan_layout's work: no arithmetic; the permutation, the point-major
-    table and the masks read once, sgx and sgy written once (bytes)."""
-    return {"ops": 0, "bytes": (8 + 64 + signed) * g * n_pad
+    """scan_layout's work: no arithmetic; the int32 permutation, the
+    point-major table and the masks read once, sgx and sgy written once
+    (bytes)."""
+    return {"ops": 0, "bytes": (4 + 64 + signed) * g * n_pad
             + 4 * row_words * n_pad}
 
 
@@ -754,7 +776,8 @@ def replaced_layout(perm, ppx, ppy, negm, lanes):
 
     g, n_pad = perm.shape
     steps = n_pad // lanes
-    idx = perm.view(g, lanes, steps).transpose(1, 2).reshape(g, 1, n_pad)
+    idx = perm.long().view(g, lanes, steps).transpose(1, 2).reshape(
+        g, 1, n_pad)
 
     def lay(pp, index):
         return torch.gather(pp.expand(g, 8, pp.shape[1]), 2,
@@ -769,15 +792,24 @@ def replaced_layout(perm, ppx, ppy, negm, lanes):
 
 def sorted_work(perm, rows, negm):
     """scan_madd_sorted's work: 11 products a step whose point is finite
-    (in the table and not the (0, 0) row), and the permutation, the table
-    and the masks read once, the 48-row output written once (bytes)."""
+    (in the table and not the (0, 0) row), and the int32 permutation, the
+    table and the masks read once, the 48-row output written once
+    (bytes)."""
     g, n_pad = perm.shape
     nonzero = rows.ne(0).any(dim=1)
     inside = (perm >= 0) & (perm < n_pad)
-    finite = int((nonzero[perm.clamp(0, n_pad - 1)] & inside).sum().item())
+    finite = int((nonzero[perm.long().clamp(0, n_pad - 1)] & inside)
+                 .sum().item())
     return {"ops": ec_work(11 * finite, 0, 0)["ops"],
-            "bytes": (8 + 192 + (negm is not None)) * g * n_pad
+            "bytes": (4 + 192 + (negm is not None)) * g * n_pad
             + 4 * rows.shape[1] * n_pad}
+
+
+def sort_work(g, n, want_keys):
+    """digit_sort's work: no arithmetic; the keys read once, the int32
+    permutation (and the sorted keys, where asked) written once
+    (bytes)."""
+    return {"ops": 0, "bytes": 4 * g * n * (2 + want_keys)}
 
 
 def sorted_head_plain(perm, rows, negm, lanes, head=8):
@@ -794,14 +826,14 @@ def sorted_head_plain(perm, rows, negm, lanes, head=8):
 def phase_sorted_small(dev, entries):
     """scan_madd_sorted against its plain version, bit for bit, at a small
     shape: 2 windows of 8 steps x 1024 lanes over a table of seeded curve
-    points with infinities (edge_affine), signed and unsigned, the stable
-    sort of seeded digits, and three indices outside the table (-1, n_pad,
-    2^40), which the kernel takes as the (0, 0) point and the plain version
-    is handed as the index of a (0, 0) row."""
+    points with infinities (edge_affine), signed and unsigned, the digit
+    sort's permutation of seeded digits, and three indices outside the
+    table (-1, n_pad, 2^31 - 1), which the kernel takes as the (0, 0) point
+    and the plain version is handed as the index of a (0, 0) row."""
     import torch
 
     from tpu_msm_torch.ops import cuda_curve as cc
-    from tpu_msm_torch.ops import field
+    from tpu_msm_torch.ops import field, sort
     from tpu_msm_torch.ops.pippenger import pack_u16_rows
 
     check = checker(entries, 2)
@@ -811,9 +843,9 @@ def phase_sorted_small(dev, entries):
     gen = torch.Generator(device=dev).manual_seed(SEED + 21)
     digits = torch.randint(0, 300, (g, n_pad), generator=gen, device=dev,
                            dtype=torch.int32)
-    perm = torch.sort(digits, dim=1, stable=True)[1]
+    perm = sort.digit_sort(digits, 9)[1]
     bad = perm.clone()
-    bad[0, 3], bad[1, 100], bad[1, 7] = -1, n_pad, 1 << 40
+    bad[0, 3], bad[1, 100], bad[1, 7] = -1, n_pad, (1 << 31) - 1
     fixed = bad.clone()
     fixed[(bad < 0) | (bad >= n_pad)] = 0
     for signed in (False, True):
@@ -829,6 +861,91 @@ def phase_sorted_small(dev, entries):
                   cc.scan_madd_sorted_plain(q, rows, negm, lanes))
 
 
+def held_sort(check, what, digits, bits):
+    """digit_sort of the (G, n) digits against its plain version, bit for
+    bit, the sorted keys and the permutation, and without the keys the same
+    permutation; returns the permutation."""
+    import torch
+
+    from tpu_msm_torch.ops import sort
+
+    shape = f"{[*digits.shape, bits]} ({what})"
+    got = sort.digit_sort(digits, bits, want_keys=True)
+    check("digit_sort", shape, got,
+          sort.digit_sort_plain(digits, bits, want_keys=True))
+    if not torch.equal(sort.digit_sort(digits, bits)[1], got[1]):
+        raise AssertionError(f"digit_sort {shape}: the permutation differs "
+                             f"without the sorted keys")
+    return got[1]
+
+
+def time_sort(what, digits, bits):
+    """digit_sort as the main path calls it (no sorted keys) timed by CUDA
+    graph in turns with torch.sort(stable=True), the library call
+    (kernel, torch.sort, torch.sort, kernel). Its plain version (torch.sort
+    and the cast of its indices) by cuda_ms, its bound by sort_work."""
+    import torch
+
+    from tpu_msm_torch.ops import sort
+
+    g, n = digits.shape
+    fns = {"kernel": lambda: sort.digit_sort(digits, bits),
+           "torch.sort": lambda: torch.sort(digits, dim=1, stable=True)}
+    runs = {k: [] for k in fns}
+    for which in ("kernel", "torch.sort", "torch.sort", "kernel"):
+        runs[which].append(graph_ms(fns[which]))
+    rec = {"shape": str([g, n, bits]), "what": what,
+           "ms": statistics.mean(runs["kernel"]), "ms_runs": runs["kernel"],
+           "call_ms": cuda_ms(fns["kernel"]),
+           "plain_ms": cuda_ms(lambda: sort.digit_sort_plain(digits, bits)),
+           **bound(sort_work(g, n, False)),
+           "library_ms": statistics.mean(runs["torch.sort"]),
+           "library_ms_runs": runs["torch.sort"]}
+    log(2, f"time digit_sort {rec['shape']} ({what}) on the device: "
+        f"{runs['kernel']} ms, torch.sort {runs['torch.sort']} ms (kernel / "
+        f"torch.sort {rec['ms'] / rec['library_ms']:.4f}); plain "
+        f"{rec['plain_ms']:.4f} ms; bound {rec['bound_ms']:.4f} "
+        f"ms by {rec['bound_by']} ({rec['ms'] / rec['bound_ms']:.2f} times "
+        f"it)")
+    return rec
+
+
+def sort_edges(dev, check, inputs):
+    """digit_sort at the per-window route's shape, (1, 2^20) signed digits
+    of window 0 at 16384 lanes (16 bits), and at the edges: a ragged row
+    (12,345 keys, not a multiple of the kernel's 4096-key tile), all keys
+    equal, all keys the sentinel, 9-bit keys (c = 8, one pass) and 18-bit
+    ones (c = 17 unsigned)."""
+    import torch
+
+    from tpu_msm_torch.ops import pippenger, sort
+    from tpu_msm_torch.ops.curve import AffinePoint
+    from tpu_msm_torch.utils import interop
+    from tpu_msm_torch.utils.config import MsmConfig
+
+    px, py, sl = interop.limbs_to_device(*inputs[20], dev)
+    cfg = MsmConfig(scan_lanes=16384)
+    _, cfg, _, digits, _, _ = pippenger._digits(AffinePoint(px, py), sl, cfg)
+    held_sort(check, "the per-window route's window", digits[:1].contiguous(),
+              sort.key_bits(cfg.buckets_per_window()))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 22)
+
+    def keys(g, n, top):
+        return torch.randint(0, top + 1, (g, n), generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    edges = {"ragged": (keys(3, 12345, 65536), 17),
+             "all equal": (torch.full((3, 70000), 777, dtype=torch.int32,
+                                      device=dev), 17),
+             "all the sentinel": (torch.full((3, 70000), 65536,
+                                             dtype=torch.int32, device=dev),
+                                  17),
+             "c = 8, one pass": (keys(16, 70000, 256), 9),
+             "c = 17": (keys(3, 70000, 1 << 17), 18)}
+    for what, (d, bits) in edges.items():
+        held_sort(check, what, d, bits)
+
+
 def phase_layout(dev, entries, inputs):
     """scan_madd_sorted, and scan_layout, at each shape the paths give the
     sorted scan, on the sorted digits of that shape: the tuned 2^20 row and
@@ -841,13 +958,16 @@ def phase_layout(dev, entries, inputs):
     (sorted_work), its plain version timed on one window's first 8 steps'
     points; scan_layout held bit for bit against its plain version and
     against `replaced_layout`, the three timed (the replaced one by
-    graph_ms too), with its bound (layout_work). First
-    phase_sorted_small."""
+    graph_ms too), with its bound (layout_work). Before both, at each
+    shape: digit_sort held bit for bit against its plain version
+    (held_sort), its permutation the one the two are handed; at the tuned
+    row and the streamed group timed in turns with torch.sort (time_sort);
+    then sort_edges. First phase_sorted_small."""
     import torch
 
     from tpu_msm_torch import select_config
     from tpu_msm_torch.ops import cuda_curve as cc
-    from tpu_msm_torch.ops import pippenger
+    from tpu_msm_torch.ops import pippenger, sort
     from tpu_msm_torch.ops.curve import AffinePoint
     from tpu_msm_torch.utils import interop
     from tpu_msm_torch.utils.config import MsmConfig
@@ -862,7 +982,7 @@ def phase_layout(dev, entries, inputs):
             AffinePoint(px, py), sl, cfg)
         g = pippenger.window_group_size(*digits.shape, dev)
         return (digits[:g], None if negm is None else negm[:g], rows,
-                cfg.scan_lanes)
+                cfg.scan_lanes, sort.key_bits(cfg.buckets_per_window()))
 
     def random_group(log_n):
         sh = main_shapes(dev, log_n)
@@ -875,17 +995,19 @@ def phase_layout(dev, entries, inputs):
                              dtype=torch.int32, generator=gen)
         negm = (torch.rand((g, n_pad), device=dev, generator=gen) < 0.5
                 if sh["signed"] else None)
-        return digits, negm, rows, sh["lanes"]
+        return digits, negm, rows, sh["lanes"], sort.key_bits(sh["m"])
 
     groups = {"the tuned 2^20 row": bench_group(20, select_config(1 << 20,
                                                                   dev)),
               "MsmConfig() at 2^20": bench_group(20, MsmConfig()),
               "a streamed 2^22 chunk's group": random_group(22),
               "the 2^12 call": bench_group(12, select_config(1 << 12, dev))}
-    recs, sorted_recs = [], []
-    for what, (digits, negm, rows, lanes) in groups.items():
+    recs, sorted_recs, sort_recs = [], [], []
+    for what, (digits, negm, rows, lanes, bits) in groups.items():
         g, n_pad = digits.shape
-        perm = torch.sort(digits, dim=1, stable=True)[1]
+        perm = held_sort(check, what, digits, bits)
+        if what in ("the tuned 2^20 row", "a streamed 2^22 chunk's group"):
+            sort_recs.append(time_sort(what, digits, bits))
         shape = [g, n_pad, rows.shape[1], lanes]
 
         # ---- scan_madd_sorted against the pair it replaced ----
@@ -904,7 +1026,7 @@ def phase_layout(dev, entries, inputs):
         # The plain version on one window's first 8 steps' worth of points
         # (8 x lanes of the table, their digits and masks).
         cut = 8 * lanes
-        cut_perm = torch.sort(digits[:1, :cut], dim=1, stable=True)[1]
+        cut_perm = sort.digit_sort(digits[:1, :cut], bits)[1]
         cut_rows = rows[:cut].contiguous()
         cut_negm = None if negm is None else negm[:1, :cut].contiguous()
         plain_ms = cuda_ms(lambda: cc.scan_madd_sorted_plain(
@@ -963,6 +1085,9 @@ def phase_layout(dev, entries, inputs):
     entries["scan_layout"].update(first, other_shapes=others)
     first, *others = sorted_recs
     entries["scan_madd_sorted"].update(first, other_shapes=others)
+    sort_edges(dev, check, inputs)
+    first, *others = sort_recs
+    entries["digit_sort"].update(first, other_shapes=others)
     torch.cuda.synchronize()
 
 
@@ -1096,25 +1221,25 @@ def product_latency_ms(dev):
     return cuda_ms(lambda: cc.montmul_chain(x, x, 64, 8, 1)) / (64 * 8)
 
 
-def product_pipe_floor_ms():
+def product_pipe_floor_ms(sass):
     """A floor on one product's latency that the card sets, whatever the
     carry chains cost: the multiply pipe's issue slots of one product in
-    the built montmul_chain kernel's SASS (montmul_benchmark.sass_counts:
-    profiling.WIDE_IMAD_SLOTS for each wide or hi IMAD, one for each narrow
-    one; not the carry adds and moves that run as IMAD.X and IMAD.MOV),
+    the built montmul_chain kernel's SASS (`sass`, phase_build's
+    montmul_benchmark.sass_counts: profiling.WIDE_IMAD_SLOTS for each wide
+    or hi IMAD, one for each narrow one; not the carry adds and moves that
+    run as IMAD.X and IMAD.MOV),
     each slot holding one scheduler's pipe 32 / (IMAD_PER_CLOCK_PER_SM / 4)
     = 2 clocks for a warp, at the SM clock's maximum. Returns (ms, slots)."""
-    from tpu_msm_torch.benches import montmul_benchmark as mb
     from tpu_msm_torch.utils import profiling
 
-    kinds = mb.sass_counts()["per_product_kinds"]
+    kinds = sass["per_product_kinds"]
     slots = (profiling.WIDE_IMAD_SLOTS * (kinds["wide"] + kinds["hi"])
              + kinds["narrow"])
     clocks = slots * 32 / (profiling.IMAD_PER_CLOCK_PER_SM / 4)
     return clocks / profiling.sm_clock_hz() * 1e3, slots
 
 
-def phase_tail(dev, entries, sh, big):
+def phase_tail(dev, entries, sh, big, sass):
     """window_tail and horner against their plain versions (bit-identical)
     at the main path's W windows and c, signed and unsigned, with infinite
     inputs; then timed at the main path's digit sign beside the chain of
@@ -1152,7 +1277,7 @@ def phase_tail(dev, entries, sh, big):
     HORNER_VERDICTS[str([w, 16, 1, c])] = 2
 
     lat = product_latency_ms(dev)
-    floor, muls = product_pipe_floor_ms()
+    floor, muls = product_pipe_floor_ms(sass)
     tail_adds = (c - 1) * (1 if signed else 2) + 1
     horner_adds = (w - 1) * (c + 1)
     log(2, f"one Montgomery product's latency with the port's field core "
@@ -1231,7 +1356,7 @@ def counters():
     every kernel. padd.launches counts both padd kernels, padd_group_kernel's
     own are padd.group_launches; fold_add's and pmadd's likewise."""
     from tpu_msm_torch.ops import cuda_curve as cc
-    from tpu_msm_torch.ops import hist
+    from tpu_msm_torch.ops import hist, sort
 
     kernels = {name: (fn, "launches") for name, fn in (
         ("scan_madd", cc.scan_madd), ("padd", cc.padd),
@@ -1240,7 +1365,8 @@ def counters():
         ("pmadd", cc.pmadd), ("jac_madd", cc.jac_madd),
         ("jac_add", cc.jac_add), ("scan_madd_rows", cc.scan_madd_rows),
         ("montmul_chain", cc.montmul_chain), ("scan_layout", cc.scan_layout),
-        ("scan_madd_sorted", cc.scan_madd_sorted))}
+        ("scan_madd_sorted", cc.scan_madd_sorted),
+        ("digit_sort", sort.digit_sort))}
     kernels["padd_group"] = (cc.padd, "group_launches")
     kernels["fold_add_group"] = (cc.fold_add, "group_launches")
     kernels["pmadd_group"] = (cc.pmadd, "group_launches")
@@ -1248,7 +1374,8 @@ def counters():
               cc.horner_plain, cc.fold_add_plain, hist.digit_hist_plain,
               cc.pmadd_plain, cc.jac_madd_plain, cc.jac_add_plain,
               cc.scan_madd_rows_plain, cc.montmul_chain_plain,
-              cc.scan_layout_plain, cc.scan_madd_sorted_plain]
+              cc.scan_layout_plain, cc.scan_madd_sorted_plain,
+              sort.digit_sort_plain]
     return kernels, plains
 
 
@@ -1260,8 +1387,8 @@ def reset_counts():
         fn.calls = 0
 
 
-MAIN_KERNELS = ("scan_madd_sorted", "padd", "fold_add", "digit_hist",
-                "window_tail", "horner")
+MAIN_KERNELS = ("digit_sort", "scan_madd_sorted", "padd", "fold_add",
+                "digit_hist", "window_tail", "horner")
 # The unfused pair scan_madd_sorted replaced: the fused route launches
 # neither.
 UNFUSED = ("scan_layout", "scan_madd")
@@ -1351,7 +1478,8 @@ def phase_e2e(dev, inputs, expected):
         .bit_length()}
     paths = {width: cc.kernel_path(width, sms) for width in padd_calls}
     fold_path = cc.kernel_path(sh["w"] * sh["fanout"], sms)
-    want = {"scan_madd_sorted": -(-sh["w"] // sh["g"]), "scan_layout": 0,
+    want = {"digit_sort": -(-sh["w"] // sh["g"]),
+            "scan_madd_sorted": -(-sh["w"] // sh["g"]), "scan_layout": 0,
             "scan_madd": 0,
             "digit_hist": -(-sh["w"] // sh["g"]), "window_tail": 1,
             "horner": 1, "padd": sum(padd_calls.values()),
@@ -1361,8 +1489,9 @@ def phase_e2e(dev, inputs, expected):
     if any(one[k] != v for k, v in want.items()):
         raise AssertionError(f"launches of one msm_device call at 2^20: "
                              f"{one}, expected {want}")
-    log(3, f"msm_device n=2^20: G = {sh['g']} of {sh['w']} windows a scan "
-        f"and histogram launch; launches {json.dumps(one)} (sorted scan "
+    log(3, f"msm_device n=2^20: G = {sh['g']} of {sh['w']} windows a sort, "
+        f"scan and histogram launch; launches {json.dumps(one)} (digit sort "
+        f"{one['digit_sort']}, sorted scan "
         f"{one['scan_madd_sorted']}, layout {one['scan_layout']}, scan of a "
         f"layout {one['scan_madd']}, digit_hist "
         f"{one['digit_hist']}, padd {one['padd']}: "
@@ -1622,9 +1751,9 @@ def phase_window(dev, inputs, expected, fused_ms):
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     lanes = cfgs[0].scan_lanes
     pmadd_path = cc.kernel_path(lanes, sms)
-    launches = read_counts(4, ("pmadd", "padd", "padd_group", "fold_add",
-                               "fold_add_group", "digit_hist", "window_tail",
-                               "horner")
+    launches = read_counts(4, ("digit_sort", "pmadd", "padd", "padd_group",
+                               "fold_add", "fold_add_group", "digit_hist",
+                               "window_tail", "horner")
                            + (("pmadd_group",) if pmadd_path == "group"
                               else ()))
     if launches["scan_madd"]:
@@ -1633,7 +1762,8 @@ def phase_window(dev, inputs, expected, fused_ms):
     # each on the kernel kernel_path gives the route's width.
     steps = sum(c.num_windows() * -(-(1 << 20) // lanes) for c in cfgs)
     want = {"pmadd": steps,
-            "pmadd_group": steps if pmadd_path == "group" else 0}
+            "pmadd_group": steps if pmadd_path == "group" else 0,
+            "digit_sort": sum(c.num_windows() for c in cfgs)}
     if any(launches[k] != v for k, v in want.items()):
         raise AssertionError(f"per-window pmadd launches {launches}, "
                              f"expected {want}")
@@ -1676,12 +1806,16 @@ def phase_profile(dev, inputs):
     2^20 with the tuned row, on each route of MsmConfig's defaults, and at
     2^18 and 2^20 with and without GLV (the tuned row with signed digits): the
     device's busy ms, span, idle share and time and launches per kernel, one
-    JSON line each. Last of the phases, so that no timing runs after the
-    profiler."""
+    JSON line each. With the tuned row also a trace with the host's ops:
+    torch's own kernels split by the op that launched them
+    (`trace.torch_ops`), one JSON line; no aten::sort among them. Last of
+    the phases, so that no timing runs after the profiler."""
     import dataclasses
 
     from tpu_msm_torch import msm_device, select_config
-    from tpu_msm_torch.cli.trace import msm_on_route, profile
+    from tpu_msm_torch.cli.trace import (launching_ops, msm_on_route,
+                                         profile, summarize, torch_ops,
+                                         trace_events)
     from tpu_msm_torch.utils import interop
     from tpu_msm_torch.utils.config import MsmConfig
 
@@ -1692,6 +1826,17 @@ def phase_profile(dev, inputs):
     tuned = select_config(1 << 20, dev)
     show(profile(lambda: msm_device(dpx, dpy, dsl, tuned)), log_n=20,
          route="tuned", **dataclasses.asdict(tuned))
+    # torch's own kernels of the tuned row by the op that launched them
+    # (a trace with the host's ops, which slow the host, not the device).
+    events = trace_events(lambda: msm_device(dpx, dpy, dsl, tuned),
+                          host=True)
+    by_op = torch_ops(launching_ops(events))
+    torch_ms, torch_launches = summarize(events)["kernels"]["torch"]
+    if "aten::sort" in by_op:
+        raise AssertionError(f"msm_device launched aten::sort: {by_op}")
+    log(6, "torch kernels by op " + json.dumps({
+        "log_n": 20, "route": "tuned", "torch_ms": torch_ms,
+        "torch_launches": torch_launches, "by_op": by_op}))
     for route, lanes in (("rule", 4096), ("rule", 16384), ("fused", 16384)):
         cfg = MsmConfig(scan_lanes=lanes)
         show(profile(lambda: msm_on_route(dpx, dpy, dsl, cfg, route)),
@@ -1804,7 +1949,7 @@ def phase_cli():
 MONTMUL_LANES = 65536
 
 
-def phase_montmul(dev, entries):
+def phase_montmul(dev, entries, sass):
     """montmul_chain against its plain version (bit-identical) at 65,536
     lanes with ilp 1-8 at a cut of the chain (chain 8, steps 2), with
     starting accumulators >= P, 0, P - 1 and 2^256 - 1 on 1024 lanes each
@@ -1846,13 +1991,13 @@ def phase_montmul(dev, entries):
         others.append(rec)
     entries["montmul_chain"]["other_shapes"] = others
     lat = product_latency_ms(dev)
-    floor, muls = product_pipe_floor_ms()
+    floor, muls = product_pipe_floor_ms(sass)
     log(7, f"one Montgomery product's latency (montmul_chain, one lane, "
         f"chain 64, steps 8): {lat * 1e3:.4f} us; the pipe floor for its "
         f"{muls} multiply-pipe slots: {floor * 1e3:.4f} us")
 
 
-def phase_bound_model(dev):
+def phase_bound_model(dev, sass):
     """The question behind every "operations" bound: does a wide IMAD take
     one issue slot of the multiply pipe or two? montmul_chain on 65,536
     lanes at ilp 4 and 8 (throughput, not latency, binds there), each
@@ -1867,7 +2012,6 @@ def phase_bound_model(dev):
     from tpu_msm_torch.ops import cuda_curve as cc
     from tpu_msm_torch.utils import profiling
 
-    sass = mb.sass_counts()
     log(7, "sass one product: kinds " + json.dumps(sass["per_product_kinds"])
         + "; IMAD family " + json.dumps(sass["per_product"]) + "; all "
         + json.dumps(sass["per_product_all"]))
@@ -1892,7 +2036,7 @@ def phase_bound_model(dev):
         log(7, "bound model (at the SM clock under load) " + json.dumps(out))
 
 
-def phase_roofline(dev):
+def phase_roofline(dev, sass):
     """The roofline path: the microbench (`--lanes 65536 --chain 64
     --steps 8 --iters 3`) at ilp 1 and 4, then `profiling.roofline(20)`
     with the better rate; the counters over exactly these runs. Also the
@@ -1913,7 +2057,7 @@ def phase_roofline(dev):
     roof = profiling.roofline(20, kernel_rates={"cios": max(rates)})
     log(7, "roofline " + json.dumps(roof))
     launches = read_counts(7, ("montmul_chain",))
-    log(7, "sass " + json.dumps(mb.sass_counts()))
+    log(7, "sass " + json.dumps(sass))
     return launches
 
 
@@ -1941,8 +2085,8 @@ def phase_glv(dev, inputs, expected):
         if got != expected[log_n]:
             raise AssertionError(f"GLV msm n=2^{log_n}: {got} != native "
                                  f"{expected[log_n]}")
-        read_counts(8, ("scan_madd_sorted", "padd", "digit_hist",
-                        "window_tail", "horner"), UNFUSED)
+        read_counts(8, ("digit_sort", "scan_madd_sorted", "padd",
+                        "digit_hist", "window_tail", "horner"), UNFUSED)
         log(8, f"GLV msm n=2^{log_n} == native engine (affine, exact)")
         dpx, dpy, dsl = interop.limbs_to_device(px, py, sl, dev)
         times = {False: [], True: []}
@@ -2012,11 +2156,14 @@ def phase_options(dev, inputs, expected):
             raise AssertionError(f"msm_device n=2^{log_n} {change}: {got} != "
                                  f"the tuned row's {expected[log_n]}")
         hist_path = cfg.segment_starts in ("hist", "hist_cols")
-        one = read_counts(10, ("scan_madd_sorted", "padd", "window_tail",
-                               "horner")
+        one = read_counts(10, ("digit_sort", "scan_madd_sorted", "padd",
+                               "window_tail", "horner")
                           + (("digit_hist",) if hist_path else ()), UNFUSED)
         groups = -(-cfg.num_windows() // pippenger.window_group_size(
             cfg.num_windows(), 1 << log_n, dev))
+        if one["digit_sort"] != groups:
+            raise AssertionError(f"digit_sort launches {one['digit_sort']} "
+                                 f"with {change}, {groups} groups")
         if one["digit_hist"] != (groups if hist_path else 0):
             raise AssertionError(f"digit_hist launches {one['digit_hist']} "
                                  f"with {change}, {groups} groups")
@@ -2041,25 +2188,27 @@ class RouteSpy:
     """While active, wraps the kernel wrappers the routes call
     (pippenger's imports of cuda_curve's scan_madd_sorted, padd, pmadd,
     fold_add, window_tail and horner; hist.digit_hist, which the segment
-    starts call)
+    starts call; sort.digit_sort, which pippenger calls through its
+    module)
     and records, for each kernel and input shape, the launches its calls
     made and a copy of the first call's inputs. padd, pmadd and fold_add
     are recorded under the kernel their rule took (padd or padd_group, ...).
     The wrappers count their launches as before."""
 
     def __init__(self):
-        from tpu_msm_torch.ops import hist, pippenger
+        from tpu_msm_torch.ops import hist, pippenger, sort
 
         self.targets = [(pippenger, name) for name in (
             "scan_madd_sorted", "padd", "pmadd", "fold_add", "window_tail",
             "horner")]
-        self.targets.append((hist, "digit_hist"))
+        self.targets += [(hist, "digit_hist"), (sort, "digit_sort")]
         self.calls = {}  # (kernel, shape) -> {"launches": k, "args": ...}
 
     class _Spy:
         """Calls fn and records the call; reads and writes of its counters
-        (`digit_hist.launches += 1` inside hist.py names the module's
-        attribute, which is the spy while it is active) go to fn."""
+        (`digit_hist.launches += 1` inside hist.py, and digit_sort's in
+        sort.py, name the module's attribute, which is the spy while it is
+        active) go to fn."""
 
         def __init__(self, route, name, fn):
             object.__setattr__(self, "_parts", (route, name, fn))
@@ -2108,25 +2257,27 @@ def record(calls, kernel, args, launched):
     calls[key]["launches"] += launched
 
 
-def op_calls(fn, name):
-    """(fn(), the calls of operator tpu_msm_torch::<name> it made, recorded
-    as RouteSpy records a wrapper's, with the launches the wrapper's
-    counter gained): a loaded export program calls the operators, not the
-    wrappers RouteSpy replaces, so a dispatch mode sees them here."""
+def op_calls(fn, names):
+    """(fn(), the calls of the operators tpu_msm_torch::<name> for each of
+    `names` it made, recorded as RouteSpy records a wrapper's, with the
+    launches the wrapper's counter gained): a loaded export program calls
+    the operators, not the wrappers RouteSpy replaces, so a dispatch mode
+    sees them here."""
     import torch
     from torch.utils._python_dispatch import TorchDispatchMode
 
-    from tpu_msm_torch.ops import cuda_curve as cc
-
-    op = getattr(torch.ops.tpu_msm_torch, name).default
-    counter = getattr(cc, name)
+    kernels, _ = counters()
+    ops = {getattr(torch.ops.tpu_msm_torch, name).default: name
+           for name in names}
     calls = {}
 
     class Spy(TorchDispatchMode):
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            before = counter.launches
+            name = ops.get(func)
+            counter = kernels[name][0] if name else None
+            before = counter.launches if name else 0
             out = func(*args, **(kwargs or {}))
-            if func is op:
+            if name:
                 record(calls, name, args, counter.launches - before)
             return out
 
@@ -2145,8 +2296,8 @@ HORNER_VERDICTS = {}
 def check_route(phase, entries, calls):
     """Each kernel the route launched, at each shape it launched it at,
     against its plain version on the inputs of its first call there,
-    bit for bit; the scan on its first 8 steps (a prefix scan's first
-    steps depend on nothing after them), the sorted scan on its first 8
+    bit for bit (digit_sort with its sorted keys); the scan on its first 8
+    steps (a prefix scan's first steps depend on nothing after them), the sorted scan on its first 8
     steps and in full against the unfused pair scan_madd(scan_layout(...));
     horner at a shape already checked in the run takes that verdict
     (HORNER_VERDICTS). Returns
@@ -2154,7 +2305,7 @@ def check_route(phase, entries, calls):
     whose check a shape reused, where it was not checked on these inputs.
     Logs the seconds the checks took, by kernel."""
     from tpu_msm_torch.ops import cuda_curve as cc
-    from tpu_msm_torch.ops import hist
+    from tpu_msm_torch.ops import hist, sort
 
     check = checker(entries, phase)
     by_kernel, seconds = {}, {}
@@ -2185,6 +2336,10 @@ def check_route(phase, entries, calls):
         elif base == "digit_hist":
             check(kernel, label, hist.digit_hist(*args),
                   hist.digit_hist_plain(*args))
+        elif base == "digit_sort":  # the keys and bits (an operator's
+            # call has its other arguments too); with the sorted keys
+            check(kernel, label, sort.digit_sort(*args[:2], want_keys=True),
+                  sort.digit_sort_plain(*args[:2], want_keys=True))
         else:
             check(kernel, label, getattr(cc, base)(*args, **path),
                   getattr(cc, f"{base}_plain")(*args))
@@ -2335,8 +2490,8 @@ def phase_hybrid(dev, inputs, expected):
             f"hybrid share {share:.4f}"))
         log(12, f"msm_hybrid n=2^20 share {share:.4f} == native engine "
             f"(affine, exact) in {dt:.4f} s")
-    read_counts(12, ("scan_madd_sorted", "padd", "window_tail", "horner"),
-                UNFUSED)
+    read_counts(12, ("digit_sort", "scan_madd_sorted", "padd", "window_tail",
+                     "horner"), UNFUSED)
     alone = [db.host_seconds(lambda: expected_is(
         tpu_msm_torch.msm((px, py), sl, device=dev), expected[20], "msm"))
         for _ in range(3)]
@@ -2385,8 +2540,8 @@ def phase_golden(dev, entries):
                         f"golden {case['name']}")
             log(13, f"golden {case['name']} (n = {len(scalars)}, {kw}) == "
                 f"the fixture's result")
-    launches = read_counts(13, ("pmadd", "pmadd_group", "padd", "window_tail",
-                                "horner"))
+    launches = read_counts(13, ("digit_sort", "pmadd", "pmadd_group", "padd",
+                                "window_tail", "horner"))
     shapes = check_route(13, entries, spy.calls)
     del spy
     timed = {rec["shape"] for name in PMADD.values()
@@ -2490,9 +2645,9 @@ def phase_sharded(dev, inputs, expected, entries):
     on cuda:0 in both collectives, each equal to the native engine, D = 1
     byte-identical to msm_device, each timed in turns with msm_device by
     CUDA events, the counters set to 0 before each run and read after it; (e)
-    every scan_madd_sorted, padd, padd_group and horner launch of those
-    runs recorded by shape and held against its plain version on that
-    call's inputs (scan_madd_sorted on its first 8 steps, and in full
+    every digit_sort, scan_madd_sorted, padd, padd_group and horner launch
+    of those runs recorded by shape and held against its plain version on
+    that call's inputs (scan_madd_sorted on its first 8 steps, and in full
     against the unfused pair); (b)
     two processes of `tpu_msm_torch.parallel.distributed` over gloo, both
     on cuda:0, at 2^21 (2^20 points a rank), in both collectives, their
@@ -2514,7 +2669,8 @@ def phase_sharded(dev, inputs, expected, entries):
     ref = tpu_msm_torch.msm_device(*d, cfg)
     spy = RouteSpy()
     spy.targets = [(m, k) for m, k in spy.targets
-                   if k in ("scan_madd_sorted", "padd", "horner")]
+                   if k in ("digit_sort", "scan_madd_sorted", "padd",
+                            "horner")]
     runs, per_run = {}, {}
     for shards in SHARDS:
         for coll in sharded.COLLECTIVES:
@@ -2547,9 +2703,10 @@ def phase_sharded(dev, inputs, expected, entries):
         entries[kernel]["sharded_shapes"] = shapes.get(kernel, [])
         entries[kernel]["sharded_launches"] = {
             name: counts[kernel] for name, counts in per_run.items()}
-    entries["scan_madd_sorted"]["sharded_shapes"] = shapes["scan_madd_sorted"]
-    log(15, f"every scan_madd_sorted, padd and horner launch of the sharded "
-        f"runs "
+    for kernel in ("digit_sort", "scan_madd_sorted"):
+        entries[kernel]["sharded_shapes"] = shapes[kernel]
+    log(15, f"every digit_sort, scan_madd_sorted, padd and horner launch of "
+        f"the sharded runs "
         f"== its plain version at each shape (or an earlier phase's, where "
         f"marked): {shape_list(shapes)}")
 
@@ -2763,9 +2920,9 @@ def phase_export(dev, inputs, expected, entries):
     process runs, at 2^20 with the tuned row on bench inputs: export_msm on
     cuda:0, saved to a temporary directory, loaded in this process and held
     against eager msm_device (bit for bit, and the launches of one call of
-    each) and the native engine (affine), and each scan_madd_sorted launch
-    of the loaded program held on its own inputs as check_route holds it
-    (`op_calls`); after the fresh process ends, the two timed in turns by
+    each) and the native engine (affine), and each digit_sort and
+    scan_madd_sorted launch of the loaded program held on its own inputs
+    as check_route holds it (`op_calls`); after the fresh process ends, the two timed in turns by
     CUDA events, EXPORT_TURNS calls each. Returns the launches of one call
     of the loaded 2^20 program."""
     import torch
@@ -2821,12 +2978,14 @@ def phase_export(dev, inputs, expected, entries):
             pt, launches = _loaded_and_eager(17, "n=2^20", fn, args, cfg,
                                              MAIN_KERNELS, UNFUSED)
             expected_is(pt, expected[20], "the loaded program at 2^20")
-            _, calls = op_calls(lambda: fn(*args), "scan_madd_sorted")
+            _, calls = op_calls(lambda: fn(*args),
+                                ("digit_sort", "scan_madd_sorted"))
             shapes = check_route(17, entries, calls)
-            entries["scan_madd_sorted"]["export_shapes"] = shapes[
-                "scan_madd_sorted"]
-            log(17, f"every scan_madd_sorted launch of the loaded program == "
-                f"the unfused pair and, on its first 8 steps, its plain "
+            for kernel in ("digit_sort", "scan_madd_sorted"):
+                entries[kernel]["export_shapes"] = shapes[kernel]
+            log(17, f"every digit_sort launch of the loaded program == its "
+                f"plain version, every scan_madd_sorted launch == the "
+                f"unfused pair and, on its first 8 steps, its plain "
                 f"version, on its own inputs: {shape_list(shapes)}")
             out, err = proc.communicate(timeout=300)
         finally:
@@ -2885,9 +3044,9 @@ def phase_export(dev, inputs, expected, entries):
         reset_counts()
         want = tuple(tpu_msm_torch.msm_device(*args, wcfg))
         torch.cuda.synchronize()
-        eager = read_counts(17, ("pmadd", "pmadd_group", "padd", "padd_group",
-                                 "fold_add", "fold_add_group", "digit_hist",
-                                 "window_tail", "horner"))
+        eager = read_counts(17, ("digit_sort", "pmadd", "pmadd_group", "padd",
+                                 "padd_group", "fold_add", "fold_add_group",
+                                 "digit_hist", "window_tail", "horner"))
         if not all(np.array_equal(g, interop.tensor_to_limbs(w))
                    for g, w in zip(fresh["per_window"], want)):
             raise AssertionError("the per-window artifact's (x, y, z) is not "
@@ -2950,10 +3109,11 @@ def phase_benches(dev):
       msm_device: its `_sorted_scan_inputs` output bit for bit the sorted
       digits and the scan_layout of the permutation that msm_device's own
       first scan_madd_sorted launch takes on the same inputs; its split
-      into the sort, the scan_layout launch and the rest; no scan_layout
-      launch in msm_device's profile.
+      into the digit sort, the scan_layout launch and the rest; no
+      scan_layout launch in msm_device's profile.
 
-    Returns the launches of sort (b), the path that launches scan_layout."""
+    Returns the launches of sort (b), the path that launches scan_layout
+    (and digit_sort)."""
     from tpu_msm_torch.benches import conversion_benchmark as conv
     from tpu_msm_torch.benches import msm_benchmark as msmb
     from tpu_msm_torch.benches import sort_benchmark as sortb
@@ -3052,7 +3212,7 @@ def sort_b_check(dev):
     reset_counts()
     rec = _bench_lines(18, sortb.main_path_sort, BENCH_LOG, repeats=3,
                        device=dev, outputs=sort_b)
-    launches = read_counts(18, ("scan_layout",))
+    launches = read_counts(18, ("digit_sort", "scan_layout"))
     # msm_device's own first group: the arguments its sorted scan took.
     made = []
     real = pippenger.scan_madd_sorted
@@ -3081,9 +3241,10 @@ def sort_b_check(dev):
                              f"{rec['msm_device_layout_launches']} times")
     inside = rec["in_msm_device"]
     log(18, f"sort (b) at 2^{BENCH_LOG} ({rec['windows']} windows, "
-        f"{rec['lanes']} lanes) == the layout of msm_device's own first "
-        f"group's permutation, bit for bit; {rec['ms']:.4f} ms, profiled: "
-        f"sort {rec['sort_ms']:.4f}, scan_layout {rec['layout_ms']:.4f}, "
+        f"{rec['lanes']} lanes, {rec['key_bits']}-bit keys) == the layout of "
+        f"msm_device's own first group's permutation, bit for bit; "
+        f"{rec['ms']:.4f} ms, profiled: digit_sort {rec['sort_ms']:.4f}, "
+        f"scan_layout {rec['layout_ms']:.4f}, "
         f"other {rec['other_ms']:.4f} ms in {rec['device_events']} device "
         f"events; msm_device launches no scan_layout (its scan reads the "
         f"sorted rows itself); in msm_device sort {inside['sort_ms']:.4f}, "
@@ -3120,6 +3281,10 @@ SOURCES = {
     # The scan with that stage's layout read, not written, before it.
     "scan_madd_sorted": (EC, f"{PC}:799, tpu_msm/ops/pippenger.py:289",
                          "main"),
+    # No pallas_call: the sort stage's sort, left to XLA (sort_key_val).
+    "digit_sort": ("tpu_msm_torch/csrc/radix_sort.cu",
+                   "tpu_msm/ops/pippenger.py:291, "
+                   "tpu_msm/ops/pippenger.py:514", "main"),
 }
 PATHS = {"main": "msm_best at 2^12 and 2^20",
          "per_window": "msm at 2^20, 16384 scan lanes, both segment starts",
@@ -3163,10 +3328,10 @@ def main() -> int:
         last[0] = now
         log(phase, f"phase done {now - t0:.1f} s into the run")
 
-    phase_build()
+    sass = phase_build()
     lap(1)
     inputs = {log_n: bench_inputs(1 << log_n) for log_n in (12, 20)}
-    entries = phase_kernels(dev, inputs[20][2])
+    entries = phase_kernels(dev, inputs[20][2], sass)
     entries.update(phase_new_kernels(dev))
     phase_window_kernels(dev, entries)
     phase_layout(dev, entries, inputs)
@@ -3183,9 +3348,9 @@ def main() -> int:
     lap(4)
     launches["cli"] = phase_cli()
     lap(5)
-    phase_montmul(dev, entries)
-    phase_bound_model(dev)
-    launches["roofline"] = phase_roofline(dev)
+    phase_montmul(dev, entries, sass)
+    phase_bound_model(dev, sass)
+    launches["roofline"] = phase_roofline(dev, sass)
     lap(7)
     more = {log_n: bench_inputs(1 << log_n) for log_n in (16, 18)}
     for log_n, (px, py, sl) in more.items():

@@ -46,6 +46,7 @@ torch = pytest.importorskip("torch")
 
 from tpu_msm_torch.benches import (conversion_benchmark,  # noqa: E402
                                    msm_benchmark, sort_benchmark)
+from tpu_msm_torch.cli import trace  # noqa: E402
 from tpu_msm_torch.ops import pippenger  # noqa: E402
 from tpu_msm_torch.utils.config import MsmConfig  # noqa: E402
 
@@ -247,9 +248,10 @@ def test_main_path_sort_matches_jax(jax, monkeypatch, signed):
 
 def test_main_path_sort_splits_a_trace_by_launching_op():
     """Part (b)'s split of a profiled call: each device event goes to the
-    outermost aten op around the op (External id) or runtime call
-    (correlation) that launched it; the call's run of names is then found
-    in msm_device's trace."""
+    outermost op around the op (External id) or runtime call
+    (correlation) that launched it, the digit sort's operator or the
+    layout's; the call's run of names is then found in msm_device's
+    trace."""
     def op(name, ts, dur, ext):
         return {"ph": "X", "cat": "cpu_op", "name": name, "ts": ts,
                 "dur": dur, "args": {"External id": ext}}
@@ -259,7 +261,8 @@ def test_main_path_sort_splits_a_trace_by_launching_op():
                 "args": args}
 
     events = [
-        op("aten::sort", 0, 100, 1), op("aten::empty", 10, 5, 2),
+        op("tpu_msm_torch::digit_sort", 0, 100, 1),
+        op("aten::empty", 10, 5, 2),
         op("aten::reshape", 120, 20, 3),
         op("tpu_msm_torch::scan_layout", 150, 80, 4),
         op("aten::empty", 160, 5, 5),
@@ -275,10 +278,12 @@ def test_main_path_sort_splits_a_trace_by_launching_op():
         dev("copy", 1400, 40, **{"External id": 3}),
         dev("scan_layout_kernel", 1500, 500, correlation=78),
     ]
-    parts = sort_benchmark.call_parts(events)
+    parts = trace.launching_ops(events)
     assert [(p[0], p[3]) for p in parts] == [
-        ("radix", "sort_ms"), ("Memset (Device)", "sort_ms"),
-        ("copy", "other_ms"), ("scan_layout_kernel", "layout_ms")]
+        ("radix", "tpu_msm_torch::digit_sort"),
+        ("Memset (Device)", "tpu_msm_torch::digit_sort"),
+        ("copy", "aten::reshape"),
+        ("scan_layout_kernel", "tpu_msm_torch::scan_layout")]
     assert sort_benchmark.split(parts) == pytest.approx(
         {"sort_ms": 0.31, "layout_ms": 0.5, "other_ms": 0.04})
     names = ["digits", "radix", "scan_layout_kernel", "radix",
@@ -287,7 +292,40 @@ def test_main_path_sort_splits_a_trace_by_launching_op():
     with pytest.raises(RuntimeError, match="not occur as a run"):
         sort_benchmark.find_run(names[:-2], [p[0] for p in parts])
     with pytest.raises(RuntimeError, match="no host op launched"):
-        sort_benchmark.call_parts([dev("orphan", 0, 1, correlation=1)])
+        trace.launching_ops([dev("orphan", 0, 1, correlation=1)])
+
+
+def test_torch_ops_splits_torch_kernels_by_op():
+    """torch's own kernels of a trace by the outermost op that launched
+    them, the largest first; the port's kernels and copies are left out,
+    and the radix sort's three kernels are the port's in msm_device's run
+    even where its last pass is another instance."""
+    def op(name, ts, dur, ext):
+        return {"ph": "X", "cat": "cpu_op", "name": name, "ts": ts,
+                "dur": dur, "args": {"External id": ext}}
+
+    def dev(name, ts, dur, cat="kernel", **args):
+        return {"ph": "X", "cat": cat, "name": name, "ts": ts, "dur": dur,
+                "args": args}
+
+    events = [
+        op("aten::cat", 0, 10, 1), op("aten::where", 20, 10, 2),
+        op("aten::copy_", 21, 2, 3), op("aten::cat", 40, 10, 4),
+        dev("CatArrayBatchedCopy", 100, 30, **{"External id": 1}),
+        dev("elementwise_kernel", 200, 50, **{"External id": 3}),
+        dev("Memcpy DtoD", 300, 70, cat="gpu_memcpy", **{"External id": 3}),
+        dev("CatArrayBatchedCopy", 400, 40, **{"External id": 4}),
+        dev("padd_kernel", 500, 90, **{"External id": 2}),
+    ]
+    by_op = trace.torch_ops(trace.launching_ops(events))
+    assert list(by_op) == ["aten::cat", "aten::where"]
+    assert by_op["aten::cat"] == [pytest.approx(0.07), 2]
+    assert by_op["aten::where"] == [pytest.approx(0.05), 1]
+    names = ["void radix_count_kernel(int)",
+             "void radix_scatter_kernel<false, false, false>(int)"]
+    run = ["void radix_count_kernel(int)",
+           "void radix_scatter_kernel<false, false, true>(int)"]
+    assert sort_benchmark.find_run(names, run) == 0
 
 
 # --------------------------------------------------------------------------
@@ -365,4 +403,6 @@ def test_bench_on_the_card(cuda, name, tmp_path, monkeypatch, capsys):
         rec.get("row") == "cpu" for rec in lines]
     if name == "sort":
         [b] = [rec for rec in lines if rec["part"] == "b"]
-        assert b["device_events"] > 0 and 0 < b["share_of_torch"] < 1
+        # The sort is the port's kernel: the call launches none of torch's.
+        assert b["device_events"] > 0 and b["sort_ms"] > 0
+        assert b["share_of_torch"] == 0

@@ -131,7 +131,7 @@ def _op_cases():
     words for the scan and the layout), the launch arguments as the
     wrappers pass them on the CPU; horner at W = 1 too, where the plain
     result is the input; the layout and the sorted scan with and without
-    masks."""
+    masks; the digit sort with and without its sorted keys."""
     rng = np.random.RandomState(11)
 
     def rows(*shape):
@@ -145,7 +145,8 @@ def _op_cases():
     e = [rows(16, 4) for _ in range(6)]
     digits = torch.from_numpy(rng.randint(0, 10, size=(2, 50))
                               .astype(np.int32))
-    perm = torch.from_numpy(np.stack([rng.permutation(12) for _ in range(2)]))
+    perm = torch.from_numpy(np.stack([rng.permutation(12) for _ in range(2)])
+                            .astype(np.int32))
     negm = torch.from_numpy(rng.rand(2, 12) < 0.5)
     return [
         ("scan_madd", (words(2, 8, 3, 4), words(2, 8, 3, 4))),
@@ -165,6 +166,8 @@ def _op_cases():
         ("scan_layout", (perm, words(12, 16), None, 3)),
         ("scan_madd_sorted", (perm, words(12, 24), negm, 4)),
         ("scan_madd_sorted", (perm, words(12, 16), None, 3)),
+        ("digit_sort", (digits, 4, True)),
+        ("digit_sort", (digits, 4, False)),
     ]
 
 

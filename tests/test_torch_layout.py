@@ -2,7 +2,7 @@
 CPU against the JAX package, on the card the kernel against its plain
 version.
 
-On the CPU, `scan_layout_plain` (after `torch.sort(digits, stable=True)`)
+On the CPU, `scan_layout_plain` (after the digit sort's int32 permutation)
 and the port's `pippenger._sorted_scan_inputs` must equal the JAX package's
 `_sorted_scan_inputs` (`tpu_msm/ops/pippenger.py:271-307`) bit for bit,
 under both of its `sort_impl` values ("payload": one 17-operand sort;
@@ -35,7 +35,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from tpu_msm_torch.ops import cuda_curve as cc  # noqa: E402
-from tpu_msm_torch.ops import pippenger  # noqa: E402
+from tpu_msm_torch.ops import pippenger, sort  # noqa: E402
 
 LANES = 1024
 SEED = 14
@@ -106,7 +106,7 @@ def test_layout_matches_jax(jax_sort, g, steps, signed, equal):
     calls = cc.scan_layout_plain.calls
     sorted_digits, sgx, sgy = pippenger._sorted_scan_inputs(d, m, rows, LANES)
     assert cc.scan_layout_plain.calls == calls + 1  # the CPU's plain version
-    perm = torch.sort(d, dim=1, stable=True)[1]
+    _, perm = sort.digit_sort_plain(d, sort.MAX_KEY_BITS)
     px, py = cc.scan_layout_plain(perm, rows, m, LANES)
     assert sgx.shape == sgy.shape == px.shape == (g, 8, steps, LANES)
     assert sgx.dtype == sgy.dtype == torch.int32
@@ -157,11 +157,12 @@ def test_scan_operands_rows_are_the_packed_words():
 
 
 def test_scan_layout_checks_its_operands():
-    perm = torch.stack([torch.randperm(64) for _ in range(2)])
+    perm = torch.stack([torch.randperm(64) for _ in range(2)]).to(
+        torch.int32)
     rows = torch.zeros((64, 24), dtype=torch.int32)
     negm = torch.zeros((2, 64), dtype=torch.bool)
     bad = {"lanes": (perm, rows, negm, 5),
-           "perm dtype": (perm.to(torch.int32), rows, negm, 8),
+           "perm dtype": (perm.to(torch.int64), rows, negm, 8),
            "rows count": (perm, rows[:63], negm, 8),
            "masks need -y": (perm, rows[:, :16].contiguous(), negm, 8),
            "-y needs masks": (perm, rows, None, 8),
@@ -200,7 +201,7 @@ def test_scan_layout_kernel_matches_plain(cuda, g, steps, signed, equal,
     digits, words, negm = _inputs(SEED + steps, g, steps, signed, equal,
                                   lanes)
     d, rows, m = _tensors(digits, words, negm)
-    perm = torch.sort(d, dim=1, stable=True)[1]
+    _, perm = sort.digit_sort_plain(d, sort.MAX_KEY_BITS)
     _check_kernel(cuda, perm, rows, m, lanes)
 
 
@@ -212,10 +213,11 @@ def test_scan_layout_kernel_index_outside_the_table(cuda):
     digits, words, negm = _inputs(SEED, 2, 5, True, False)
     _, rows, m = _tensors(digits, words, negm)
     n_pad = rows.shape[0]
-    perm = torch.stack([torch.randperm(n_pad) for _ in range(2)])
+    perm = torch.stack([torch.randperm(n_pad) for _ in range(2)]).to(
+        torch.int32)
     zero = int(np.flatnonzero(~words.any(axis=1))[0])
     bad = perm.clone()
-    bad[0, 3], bad[1, 100], bad[1, 7] = -1, n_pad, 1 << 40
+    bad[0, 3], bad[1, 100], bad[1, 7] = -1, n_pad, (1 << 31) - 1
     fixed = bad.clone()
     fixed[(bad < 0) | (bad >= n_pad)] = zero
     got = cc.scan_layout(bad.to(cuda), rows.to(cuda), m.to(cuda), LANES // 2)

@@ -40,7 +40,7 @@ torch = pytest.importorskip("torch")
 from tpu_msm_torch.bindings import native  # noqa: E402
 from tpu_msm_torch.models import bn254  # noqa: E402
 from tpu_msm_torch.ops import cuda_curve as cc  # noqa: E402
-from tpu_msm_torch.ops import field, pippenger  # noqa: E402
+from tpu_msm_torch.ops import field, pippenger, sort  # noqa: E402
 from tpu_msm_torch.utils import interop  # noqa: E402
 from tpu_msm_torch.utils.config import MsmConfig  # noqa: E402
 
@@ -91,12 +91,12 @@ def _inputs(seed, g, steps, signed, equal, lanes=LANES, m=None):
 
 
 def _tensors(digits, words, negm):
-    """The operator's operands: the stable sort's int64 permutation,
-    (n_pad, 24 or 16) int32 rows (16 words without masks), bool masks or
-    None."""
+    """The operator's operands: the stable sort's int32 permutation (the
+    digit sort's), (n_pad, 24 or 16) int32 rows (16 words without masks),
+    bool masks or None."""
     rows = words if negm is not None else words[:, :16]
-    perm = torch.sort(torch.from_numpy(digits.astype(np.int32)), dim=1,
-                      stable=True)[1]
+    _, perm = sort.digit_sort_plain(
+        torch.from_numpy(digits.astype(np.int32)), sort.MAX_KEY_BITS)
     return (perm, torch.from_numpy(np.ascontiguousarray(rows).view(np.int32)),
             None if negm is None else torch.from_numpy(negm))
 
@@ -225,17 +225,18 @@ def test_window_heavy_takes_the_sorted_scan(monkeypatch, signed):
 
 def test_group_bytes_count_the_permutation_and_the_output():
     """A window of a group holds its sorted digit (4 bytes a point), the
-    int64 permutation the scan reads (8) and the scan's 48 rows (192): no
-    layout."""
-    assert pippenger.GROUP_BYTES_PER_POINT == 4 + 8 + 4 * 48
+    int32 permutation the scan reads (4) and the scan's 48 rows (192), which
+    outgrow the sort's scratch (8): no layout."""
+    assert pippenger.GROUP_BYTES_PER_POINT == 4 + 4 + 4 * 48
 
 
 def test_scan_madd_sorted_checks_its_operands():
-    perm = torch.stack([torch.randperm(64) for _ in range(2)])
+    perm = torch.stack([torch.randperm(64) for _ in range(2)]).to(
+        torch.int32)
     rows = torch.zeros((64, 24), dtype=torch.int32)
     negm = torch.zeros((2, 64), dtype=torch.bool)
     bad = {"lanes": (perm, rows, negm, 5),
-           "perm dtype": (perm.to(torch.int32), rows, negm, 8),
+           "perm dtype": (perm.to(torch.int64), rows, negm, 8),
            "rows count": (perm, rows[:63], negm, 8),
            "masks need -y": (perm, rows[:, :16].contiguous(), negm, 8),
            "-y needs masks": (perm, rows, None, 8),
@@ -294,10 +295,11 @@ def test_scan_madd_sorted_kernel_index_outside_the_table(cuda):
     digits, words, negm = _inputs(SEED, 2, 5, True, False)
     _, rows, m = _tensors(digits, words, negm)
     n_pad = rows.shape[0]
-    perm = torch.stack([torch.randperm(n_pad) for _ in range(2)])
+    perm = torch.stack([torch.randperm(n_pad) for _ in range(2)]).to(
+        torch.int32)
     zero = int(np.flatnonzero(~words.any(axis=1))[0])
     bad = perm.clone()
-    bad[0, 3], bad[1, 100], bad[1, 7] = -1, n_pad, 1 << 40
+    bad[0, 3], bad[1, 100], bad[1, 7] = -1, n_pad, (1 << 31) - 1
     fixed = bad.clone()
     fixed[(bad < 0) | (bad >= n_pad)] = zero
     got = cc.scan_madd_sorted(bad.to(cuda), rows.to(cuda), m.to(cuda),

@@ -132,11 +132,15 @@ def load() -> ctypes.CDLL:
                 "tpu_msm_montmul_chain": [vp] * 3 + [i64, i32, i32, i32, vp],
                 "tpu_msm_scan_layout": [vp] * 5 + [i32, i64, i32, vp],
                 "tpu_msm_scan_madd_sorted": [vp] * 4 + [i32, i64, i32, vp],
+                "tpu_msm_digit_sort": [vp] * 4 + [i32, i64, i32, vp],
             }
             for name, argtypes in signatures.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
+            # Not a launch: the digit sort's scratch in int32 words.
+            lib.tpu_msm_digit_sort_scratch.argtypes = [i32, i64, i32]
+            lib.tpu_msm_digit_sort_scratch.restype = i64
             _lib = lib
     return _lib
 

@@ -13,9 +13,14 @@ there at first use: it makes bench-style inputs on the card
 (`dispatch_benchmark.tiled_inputs`: bench.py's 512 points tiled to
 2^log_n, seeded scalars below 2^253), runs `msm_device` with the tuned row
 (`select_config`) once, then times `--calls` calls by CUDA events and
-prints their median. Every tree's affine result must be the same. One JSON
-line per turn, then one with each tree's medians, all with the card's name
-and power limit. Needs a CUDA device and raises without one.
+prints their median. Every tree's affine result must be the same. After
+the timed calls the turn traces one more call with the host's ops (the
+tree's own `cli.trace.trace_events(host=True)`), and this tree splits
+torch's own kernels in it by the op that launched them
+(`trace.launching_ops`, `trace.torch_ops`): `torch_ms`, `torch_launches`
+and `by_op` of the turn. One JSON line per turn, then one with each
+tree's medians, all with the card's name and power limit. Needs a CUDA
+device and raises without one.
 """
 
 from __future__ import annotations
@@ -27,12 +32,14 @@ import subprocess
 import sys
 from pathlib import Path
 
-# What a turn runs, in its tree: argv = log_n, seed, calls.
+# What a turn runs, in its tree: argv = log_n, seed, calls, the file that
+# takes the traced call's events.
 _CHILD = r"""
 import dataclasses, json, statistics, sys
 import torch
 import tpu_msm_torch
 from tpu_msm_torch.benches.dispatch_benchmark import tiled_inputs
+from tpu_msm_torch.cli.trace import trace_events
 from tpu_msm_torch.utils import interop
 
 log_n, seed, calls = (int(a) for a in sys.argv[1:4])
@@ -55,6 +62,9 @@ for _ in range(calls):
     end.record()
     end.synchronize()
     times.append(start.elapsed_time(end))
+events = trace_events(lambda: tpu_msm_torch.msm_device(*d, cfg), host=True)
+with open(sys.argv[4], "w") as f:
+    json.dump(events, f)
 print(json.dumps({"ms": statistics.median(times), "runs_ms": times,
                   "config": dataclasses.asdict(cfg),
                   "result": None if pt is None else [hex(v) for v in pt]}))
@@ -72,6 +82,9 @@ def turn_order(trees, turns: int):
 
 def run(trees, log_n: int = 20, turns: int = 3, calls: int = 5,
         seed: int = 1) -> dict:
+    import tempfile
+
+    from tpu_msm_torch.cli import trace
     from tpu_msm_torch.utils import profiling
 
     profiling.require_card("the A/B benchmark")
@@ -79,15 +92,23 @@ def run(trees, log_n: int = 20, turns: int = 3, calls: int = 5,
     medians = {t: [] for t in trees}
     first = None
     for tree in turn_order(list(trees), turns):
-        root = Path(tree).resolve()
-        env = dict(os.environ, PYTHONPATH=str(root))
-        proc = subprocess.run(
-            [sys.executable, "-c", _CHILD, str(log_n), str(seed), str(calls)],
-            cwd=root, env=env, capture_output=True, text=True, timeout=900)
-        if proc.returncode != 0:
-            raise RuntimeError(f"{tree}: rc {proc.returncode}\n"
-                               + proc.stderr[-4000:])
+        with tempfile.TemporaryDirectory() as tmp:
+            path = Path(tmp) / "events.json"
+            root = Path(tree).resolve()
+            env = dict(os.environ, PYTHONPATH=str(root))
+            proc = subprocess.run(
+                [sys.executable, "-c", _CHILD, str(log_n), str(seed),
+                 str(calls), str(path)],
+                cwd=root, env=env, capture_output=True, text=True,
+                timeout=900)
+            if proc.returncode != 0:
+                raise RuntimeError(f"{tree}: rc {proc.returncode}\n"
+                                   + proc.stderr[-4000:])
+            events = json.loads(path.read_text())
         rec = json.loads(proc.stdout.strip().splitlines()[-1])
+        torch_ms, torch_launches = trace.summarize(events)["kernels"]["torch"]
+        rec.update(torch_ms=torch_ms, torch_launches=torch_launches,
+                   by_op=trace.torch_ops(trace.launching_ops(events)))
         first = first or rec
         if rec["result"] != first["result"]:
             raise AssertionError(f"{tree}: result {rec['result']} differs "

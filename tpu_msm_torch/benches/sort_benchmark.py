@@ -17,19 +17,21 @@ together, as the JAX script reports.
 2^main-log-size points with `select_config`'s row (the tuned row at 2^20
 on the card: 16 windows of c = 16, one group, 8192 lanes) on bench-style
 inputs (`dispatch_benchmark.tiled_inputs`), as `_fused_sums` hands it the
-first group of windows (`pippenger.scan_operands`, `window_group_size`).
-The whole call is timed as in (a). On the card one call is then profiled
-(`cli.trace`, with the host's ops) and its device time split by the op
-that launched each kernel: `aten::sort`, the `tpu_msm_torch::scan_layout`
-operator (the scan_layout kernel, which gathers the sorted points' rows
-into the scan's layout), and the rest. Then one `msm_device` call at the
-same inputs is profiled: the call's kernels but the layout's, found there
-as the same run of names, give the same split inside msm_device, and the
-call's own torch kernels (the sort's) give their share of torch's own
-kernels' device ms in that profile. The main path no longer launches
-scan_layout: its scan (scan_madd_sorted) reads the sorted points itself,
-so the layout's part inside msm_device is 0 and its launches there
-(`msm_device_layout_launches`) are 0.
+first group of windows (`pippenger.scan_operands`, `window_group_size`),
+the digits' bits those of the row (`sort.key_bits`). The whole call is
+timed as in (a). On the card one call is then profiled (`cli.trace`, with
+the host's ops) and its device time split by the op that launched each
+kernel (`trace.launching_ops`): the `tpu_msm_torch::digit_sort` operator
+(the radix sort's kernels), the `tpu_msm_torch::scan_layout` operator (the
+scan_layout kernel, which gathers the sorted points' rows into the scan's
+layout), and the rest. Then one `msm_device` call at the same inputs is profiled:
+the call's kernels but the layout's, found there as the same run of
+kernels, give the same split inside msm_device, and the call's own torch
+kernels give their share of torch's own kernels' device ms in that
+profile (0 since the sort is the port's kernel). The main path does not
+launch scan_layout: its scan (scan_madd_sorted) reads the sorted points
+itself, so the layout's part inside msm_device is 0 and its launches
+there (`msm_device_layout_launches`) are 0.
 
 One JSON line a measurement, with the card's name and power limit. Runs
 on the card unless given `--device cpu`, and raises without one.
@@ -51,7 +53,8 @@ LOG_SIZES = (16, 18, 20, 22)
 PAYLOAD_ROWS = 32
 SEED = 0  # the JAX script's RandomState(0)
 # The ops whose kernels part (b) times apart; the rest is "other_ms".
-PARTS = {"aten::sort": "sort_ms", "tpu_msm_torch::scan_layout": "layout_ms"}
+PARTS = {"tpu_msm_torch::digit_sort": "sort_ms",
+         "tpu_msm_torch::scan_layout": "layout_ms"}
 
 
 def sort_inputs(log_sizes):
@@ -140,38 +143,18 @@ def main_path_operands(log_n: int = 20, device=None, cfg=None):
     return args, cfg, (px, py, sl)
 
 
-def call_parts(events) -> list:
-    """The device events of a trace taken with the host's ops, in order:
-    [(name, cat, ms, part)], part the PARTS value of the outermost op
-    whose host span holds the op that launched the event ("other_ms" for
-    any other op). The launching op is the one with the event's External
-    id, else the runtime call with its correlation."""
+def find_run(names: list, run: list) -> int:
+    """Where `run` first occurs in `names` as a contiguous run, each name
+    taken as the port's kernel it names (`trace.kernel_name`: the radix
+    sort's last pass is another instance where msm_device asks for no
+    sorted keys), else as itself; raises if it does not."""
     from tpu_msm_torch.cli import trace
 
-    ops = sorted(((float(e["ts"]), -float(e.get("dur", 0)), e) for e in events
-                  if e.get("ph") == "X" and e.get("cat") == "cpu_op"),
-                 key=lambda o: o[:2])
-    by_ext = {e["args"]["External id"]: float(e["ts"]) for *_, e in ops
-              if "External id" in e.get("args", {})}
-    by_corr = {e["args"]["correlation"]: float(e["ts"]) for e in events
-               if e.get("cat") in ("cuda_runtime", "cuda_driver")
-               and "correlation" in e.get("args", {})}
-    out = []
-    for e in trace.device_events(events):
-        a = e.get("args", {})
-        ts = by_ext.get(a.get("External id"), by_corr.get(a.get("correlation")))
-        if ts is None:
-            raise RuntimeError(f"sort (b): no host op launched {e['name']!r} "
-                               "in the trace")
-        outer = next((o for t, d, o in ops if t <= ts <= t - d), None)
-        part = PARTS.get(outer and outer["name"], "other_ms")
-        out.append((e["name"], e["cat"], float(e.get("dur", 0)) / 1e3, part))
-    return out
+    def key(name):
+        kernel = trace.kernel_name(name)
+        return name if kernel == "torch" else kernel
 
-
-def find_run(names: list, run: list) -> int:
-    """Where `run` first occurs in `names` as a contiguous run; raises if it
-    does not."""
+    names, run = [key(n) for n in names], [key(n) for n in run]
     for i in range(len(names) - len(run) + 1):
         if names[i:i + len(run)] == run:
             return i
@@ -179,11 +162,12 @@ def find_run(names: list, run: list) -> int:
                        "not occur as a run in msm_device's trace")
 
 
-def split(parts) -> dict:
-    """{part: device ms} of call_parts' rows, every PARTS key present."""
+def split(rows) -> dict:
+    """{part: device ms} of `trace.launching_ops` rows, each row's part its
+    op's PARTS value ("other_ms" for any other op), every part present."""
     out = dict.fromkeys([*PARTS.values(), "other_ms"], 0.0)
-    for _, _, ms, part in parts:
-        out[part] += ms
+    for _, _, ms, op in rows:
+        out[PARTS.get(op, "other_ms")] += ms
     return out
 
 
@@ -194,39 +178,40 @@ def main_path_sort(log_n: int = 20, repeats: int = 3, device=None, cfg=None,
     "result" (one `_sorted_scan_inputs` call's (sorted digits, sgx, sgy))."""
     import tpu_msm_torch
     from tpu_msm_torch.cli import trace
-    from tpu_msm_torch.ops import pippenger
+    from tpu_msm_torch.ops import pippenger, sort
 
     device = interop.resolve_device(device)
     args, cfg, inputs = main_path_operands(log_n, device, cfg)
     digits, _, _, lanes = args
     g, n_pad = digits.shape
     steps = n_pad // lanes
+    bits = sort.key_bits(cfg.buckets_per_window())
 
     def call():
-        return pippenger._sorted_scan_inputs(*args)
+        return pippenger._sorted_scan_inputs(*args, key_bits=bits)
 
     rec = {"bench": "sort", "part": "b", "log_n": log_n, "n": 1 << log_n,
            "windows": g, "n_pad": n_pad, "lanes": lanes, "steps": steps,
-           "window_bits": cfg.window_bits,
+           "window_bits": cfg.window_bits, "key_bits": bits,
            "signed_digits": cfg.signed_digits, "repeats": repeats,
            "ms": median_ms(call, device, repeats)}
     if outputs is not None:
         outputs.update(args=args, cfg=cfg, inputs=inputs, result=call())
     if device.type == "cuda":
-        parts = call_parts(trace.trace_events(call, host=True))
+        parts = trace.launching_ops(trace.trace_events(call, host=True))
         rec.update(split(parts), device_events=len(parts))
         events = trace.trace_events(
             lambda: tpu_msm_torch.msm_device(*inputs, cfg))
         dev = trace.device_events(events)
         # msm_device launches no layout: the rest of the call's events.
-        run = [p for p in parts if p[3] != "layout_ms"]
+        run = [p for p in parts if PARTS.get(p[3]) != "layout_ms"]
         i = find_run([e["name"] for e in dev], [p[0] for p in run])
         # The same events inside msm_device, with that profile's times.
         inside = [(p[0], p[1], float(e.get("dur", 0)) / 1e3, p[3])
                   for p, e in zip(run, dev[i:])]
         prof = trace.summarize(events)
         torch_ms, torch_launches = prof["kernels"]["torch"]
-        # torch's own kernels of the call (the sort's; not scan_layout's).
+        # torch's own kernels of the call (none of the sort's own).
         kernels_ms = sum(ms for name, cat, ms, _ in inside if cat == "kernel"
                          and trace.kernel_name(name) == "torch")
         rec.update(in_msm_device=split(inside),

@@ -47,7 +47,8 @@ KERNELS = ("scan_madd_kernel", "scan_madd_rows_kernel",
            "horner_kernel", "pmadd_kernel", "pmadd_group_kernel",
            "fold_add_kernel", "fold_add_group_kernel", "jac_madd_kernel",
            "jac_add_kernel", "digit_hist_kernel", "scan_layout_kernel",
-           "scan_madd_sorted_kernel")
+           "scan_madd_sorted_kernel", "radix_count_kernel",
+           "radix_scan_kernel", "radix_scatter_kernel")
 _DEVICE_CATS = {"kernel": None, "gpu_memcpy": "copies", "gpu_memset": "copies"}
 
 ROUTES = {"rule": pippenger.window_sums,
@@ -111,6 +112,47 @@ def device_events(events) -> list:
     return sorted((e for e in events if e.get("ph") == "X"
                    and e.get("cat") in _DEVICE_CATS),
                   key=lambda e: float(e["ts"]))
+
+
+def launching_ops(events) -> list:
+    """The device events of a trace taken with the host's ops
+    (`trace_events(..., host=True)`), in order: [(name, cat, ms, op)], op
+    the name of the outermost op whose host span holds the op that
+    launched the event ("" where none does). The launching op is the one
+    with the event's External id, else the runtime call with its
+    correlation; raises where the trace has neither."""
+    ops = sorted(((float(e["ts"]), -float(e.get("dur", 0)), e) for e in events
+                  if e.get("ph") == "X" and e.get("cat") == "cpu_op"),
+                 key=lambda o: o[:2])
+    by_ext = {e["args"]["External id"]: float(e["ts"]) for *_, e in ops
+              if "External id" in e.get("args", {})}
+    by_corr = {e["args"]["correlation"]: float(e["ts"]) for e in events
+               if e.get("cat") in ("cuda_runtime", "cuda_driver")
+               and "correlation" in e.get("args", {})}
+    out = []
+    for e in device_events(events):
+        a = e.get("args", {})
+        ts = by_ext.get(a.get("External id"), by_corr.get(a.get("correlation")))
+        if ts is None:
+            raise RuntimeError(f"no host op launched {e['name']!r} in the "
+                               "trace")
+        outer = next((o for t, d, o in ops if t <= ts <= t - d), None)
+        out.append((e["name"], e["cat"], float(e.get("dur", 0)) / 1e3,
+                    outer["name"] if outer else ""))
+    return out
+
+
+def torch_ops(rows) -> dict:
+    """{op: [device ms, launches]} of launching_ops' rows that are torch's
+    own kernels (kernel_name "torch"), by the op that launched them, the
+    largest first."""
+    out = {}
+    for name, cat, ms, op in rows:
+        if cat == "kernel" and kernel_name(name) == "torch":
+            t, k = out.get(op or "(no op)", (0.0, 0))
+            out[op or "(no op)"] = (t + ms, k + 1)
+    return {op: [t, k] for op, (t, k) in sorted(
+        out.items(), key=lambda kv: -kv[1][0])}
 
 
 def summarize(events) -> dict:

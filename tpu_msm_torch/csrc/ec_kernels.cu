@@ -202,10 +202,11 @@ __global__ void __launch_bounds__(kThreads, kScanMinBlocks)
 // [step][int4][thread], so that a warp's copies and reads of one int4 touch
 // 512 consecutive bytes, without bank conflicts: 32 KiB a block at depth 4.
 // A thread reads only the slots it filled, so no barrier is needed. The
-// permutation (8 bytes a step, a lane's steps consecutive) is read one step
+// permutation (int32, as the digit sort of csrc/radix_sort.cu writes it: 4
+// bytes a step, a lane's steps consecutive) is read one step
 // ahead of the copies into registers, the negation byte (1 MiB a window,
 // L2-resident) once the index is known, after the step's add. ptxas for
-// sm_90a (CUDA 12.8): 122 registers (120 with signed digits), 32768 bytes
+// sm_90a (CUDA 12.8): 120 registers (122 with signed digits), 32768 bytes
 // of shared memory, no spills or stack, so 4 blocks an SM as the scan. On
 // the H100 it runs at scan_madd_kernel's own speed on the same shapes, about
 // 0.8 of the time of scan_layout and scan_madd_kernel together (PERF.md §6).
@@ -232,7 +233,7 @@ __device__ __forceinline__ void cp_async_wait() {
 
 template <bool kSigned>
 __global__ void __launch_bounds__(kThreads, kScanMinBlocks)
-    scan_madd_sorted_kernel(const long long* __restrict__ perm,
+    scan_madd_sorted_kernel(const int* __restrict__ perm,
                             const int4* __restrict__ rows,
                             const uint8_t* __restrict__ negm,
                             uint32_t* __restrict__ out, long long n_pad,
@@ -243,15 +244,15 @@ __global__ void __launch_bounds__(kThreads, kScanMinBlocks)
   const int lane = blockIdx.x * kThreads + t;
   if (lane >= lanes) return;
   const size_t plane = (size_t)steps * lanes;
-  const long long* lperm = perm + blockIdx.y * n_pad + (long long)lane * steps;
+  const int* lperm = perm + blockIdx.y * n_pad + (long long)lane * steps;
   const uint8_t* wneg = kSigned ? negm + blockIdx.y * n_pad : nullptr;
   out += blockIdx.y * 48 * plane;
 
   // Step k's row of the table, or -1: past the last step, or outside it.
-  const auto point = [&](long long s) -> int {
-    return s >= 0 && s < n_pad ? (int)s : -1;
+  const auto point = [&](int s) -> int {
+    return s >= 0 && s < n_pad ? s : -1;
   };
-  const auto index = [&](int k) -> long long {
+  const auto index = [&](int k) -> int {
     return k < steps ? __ldg(lperm + k) : -1;
   };
   // The int4 of the row where the step's y (2) or -y (4) half-row starts.
@@ -281,7 +282,7 @@ __global__ void __launch_bounds__(kThreads, kScanMinBlocks)
     // Step k + depth - 1 into the slot step k - 1 read (a group is
     // committed every step, empty of reads past the last one).
     fetch((k + kSortedDepth - 1) % kSortedDepth, next, next_y);
-    const long long ahead = index(k + kSortedDepth);
+    const int ahead = index(k + kSortedDepth);
     cp_async_wait<kSortedDepth - 1>();  // step k's group has landed
     const int slot = k % kSortedDepth;
     const int4 v0 = ring[slot][0][t], v1 = ring[slot][1][t];
@@ -719,9 +720,9 @@ int tpu_msm_scan_madd(const uint32_t* gx, const uint32_t* gy, uint32_t* out,
 }
 
 // rows: (n_pad, 24) words [x | y | -y] where negm is given, else (n_pad,
-// 16) [x | y], 16-byte aligned; perm and negm: (windows, n_pad); out:
+// 16) [x | y], 16-byte aligned; perm (int32) and negm: (windows, n_pad); out:
 // (windows, 48, n_pad / lanes, lanes).
-int tpu_msm_scan_madd_sorted(const long long* perm, const int* rows,
+int tpu_msm_scan_madd_sorted(const int* perm, const int* rows,
                              const uint8_t* negm, uint32_t* out, int windows,
                              long long n_pad, int lanes, void* stream) {
   if (windows <= 0 || windows > 65535 || lanes <= 0 || n_pad <= 0 ||

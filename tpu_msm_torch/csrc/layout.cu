@@ -9,17 +9,18 @@
 // the point-major (n, 16) table, a 64-byte row a point, and the transposes
 // into the scan's layout, in one pass.
 //
-// The function. perm (G, n_pad) int64 holds each window's stable sort
-// permutation; rows the packed words of every point, (n_pad, 16) int32
-// [x 0-7 | y 0-7] where the digits are unsigned and negm is null, (n_pad,
-// 24) with -y's words at 16-23 where they are signed and negm (G, n_pad)
-// holds the negation masks (one byte each). With steps = n_pad / lanes, column k * lanes + l of window g takes
-// the point src = perm[g, l * steps + k]:
+// The function. perm (G, n_pad) int32 holds each window's stable sort
+// permutation (csrc/radix_sort.cu); rows the packed words of every point,
+// (n_pad, 16) int32 [x 0-7 | y 0-7] where the digits are unsigned and negm
+// is null, (n_pad, 24) with -y's words at 16-23 where they are signed and
+// negm (G, n_pad) holds the negation masks (one byte each). With steps =
+// n_pad / lanes, column k * lanes + l of window g takes the point src =
+// perm[g, l * steps + k]:
 //   sgx[g, :, k, l] = rows[src, 0:8]
 //   sgy[g, :, k, l] = rows[src, 16:24] if negm[g, src], else rows[src, 8:16]
 // An index outside [0, n_pad) gives the (0, 0) infinity and reads nothing.
 //
-// What bounds it: bytes. It does no arithmetic: a column reads 8 bytes of
+// What bounds it: bytes. It does no arithmetic: a column reads 4 bytes of
 // perm and 64 of rows (its x half-row and its y or -y half-row), and writes
 // 64. The torch formulation it replaces gathered (G, 8, n_pad) words one
 // 4-byte word at a time from the planar (8, n_pad) x and y, so each read
@@ -30,7 +31,7 @@
 //
 // The design. A block takes a tile of one window, 32 lanes x 32 steps:
 // - it reads the tile's perm into shared memory (for a fixed lane the steps
-//   are consecutive in perm, so a warp reads 256 contiguous bytes), stored
+//   are consecutive in perm, so a warp reads 128 contiguous bytes), stored
 //   as [step][lane] with a padded row, so that neither the stores nor the
 //   reads below conflict on a bank;
 // - warp w then takes steps w, w + 8, w + 16 and w + 24 of the tile, thread
@@ -75,7 +76,7 @@ __device__ __forceinline__ void store8(int* p, size_t plane,
 // Grid: x = tile of lanes, y = tile of steps, z = window.
 template <bool kSigned>
 __global__ void __launch_bounds__(kThreads)
-    scan_layout_kernel(const long long* __restrict__ perm,
+    scan_layout_kernel(const int* __restrict__ perm,
                        const int4* __restrict__ rows,
                        const uint8_t* __restrict__ negm,
                        int* __restrict__ sgx, int* __restrict__ sgy,
@@ -85,15 +86,15 @@ __global__ void __launch_bounds__(kThreads)
   const long long g = blockIdx.z;
   const int l0 = blockIdx.x * kTileLanes;
   const int k0 = blockIdx.y * kTileSteps;
-  const long long* wperm = perm + g * n_pad;
+  const int* wperm = perm + g * n_pad;
 
   for (int i = threadIdx.x; i < kTileLanes * kTileSteps; i += kThreads) {
     const int li = i / kTileSteps, ki = i % kTileSteps;
     const int l = l0 + li, k = k0 + ki;
     int src = -1;
     if (l < lanes && k < steps) {
-      const long long s = __ldg(wperm + (long long)l * steps + k);
-      if (s >= 0 && s < n_pad) src = (int)s;
+      const int s = __ldg(wperm + (long long)l * steps + k);
+      if (s >= 0 && s < n_pad) src = s;
     }
     tile[ki][li] = src;
   }
@@ -138,7 +139,7 @@ __global__ void __launch_bounds__(kThreads)
 }  // namespace
 
 // rows holds 24 words a point where negm is given, else 16.
-extern "C" int tpu_msm_scan_layout(const long long* perm, const int* rows,
+extern "C" int tpu_msm_scan_layout(const int* perm, const int* rows,
                                    const uint8_t* negm, int* sgx, int* sgy,
                                    int windows, long long n_pad, int lanes,
                                    void* stream) {

@@ -76,9 +76,9 @@ padd, fold_add and pmadd; `<wrapper>.group_launches` those of the group
 kernel alone) and `<plain>.calls` counts plain-version calls; callers may reset
 them to 0. The operators' implementations count, so the launches of a
 program that `torch.export` saved and loaded are counted too.
-Operands are int32 tensors that carry u32 bit patterns, but the
-permutation (int64, as torch.sort gives it) and masks (bool) of scan_layout
-and scan_madd_sorted.
+Operands are int32 tensors that carry u32 bit patterns, but the masks
+(bool) of scan_layout and scan_madd_sorted; their permutation is int32, as
+the digit sort (`ops/sort.py`, `csrc/radix_sort.cu`) writes it.
 """
 
 from __future__ import annotations
@@ -218,8 +218,8 @@ scan_madd.launches = 0
 
 def _check_scan_layout(perm, rows, negm, lanes: int,
                        name: str = "scan_layout") -> None:
-    if perm.dim() != 2 or perm.dtype != _I64:
-        raise ValueError(f"{name} perm must be (G, n_pad) int64, got "
+    if perm.dim() != 2 or perm.dtype != _I32:
+        raise ValueError(f"{name} perm must be (G, n_pad) int32, got "
                          f"{tuple(perm.shape)} {perm.dtype}")
     g, n_pad = perm.shape
     width = 16 if negm is None else 24
@@ -242,7 +242,7 @@ def scan_layout_plain(perm: torch.Tensor, rows: torch.Tensor, negm,
     """Each window's points in sort order, in the scan's layout: the JAX
     package's "rank" strategy (`pippenger.py:289-297`) after its sort.
 
-    perm: (G, n_pad) int64 stable sort permutations; rows: the packed
+    perm: (G, n_pad) int32 stable sort permutations; rows: the packed
     words of each point, (n_pad, 16) int32 [x | y] with negm None, or
     (n_pad, 24) [x | y | -y] with negm the (G, n_pad) bool negation masks;
     lanes must divide n_pad. Returns (sgx, sgy), each (G, 8, steps, lanes) int32 with
@@ -254,7 +254,8 @@ def scan_layout_plain(perm: torch.Tensor, rows: torch.Tensor, negm,
     g, n_pad = perm.shape
     steps = n_pad // lanes
     # Column k·lanes + l of window g is its sorted position l·steps + k.
-    src = perm.view(g, lanes, steps).transpose(1, 2).reshape(g, n_pad)
+    src = perm.to(_I64).view(g, lanes, steps).transpose(1, 2).reshape(
+        g, n_pad)
     taken = rows.index_select(0, src.reshape(-1)).view(g, steps, lanes, -1)
     y = taken[..., 8:16]
     if negm is not None:
@@ -283,7 +284,7 @@ def _scan_layout_cuda(perm, rows, negm, lanes):
     if g and n_pad:
         _build.launch("tpu_msm_scan_layout", perm.device, perm, rows, negm,
                       sgx, sgy, g, n_pad, lanes,
-                      dtypes=(_I64, _I32, torch.bool))
+                      dtypes=(_I32, torch.bool))
         scan_layout.launches += 1
     return sgx, sgy
 
@@ -338,7 +339,7 @@ def _scan_madd_sorted_cuda(perm, rows, negm, lanes):
     if g and n_pad:
         _build.launch("tpu_msm_scan_madd_sorted", perm.device, perm, rows,
                       negm, out, g, n_pad, lanes,
-                      dtypes=(_I64, _I32, torch.bool))
+                      dtypes=(_I32, torch.bool))
         scan_madd_sorted.launches += 1
     return out
 

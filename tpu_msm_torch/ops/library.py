@@ -18,6 +18,7 @@ all in the namespace `tpu_msm_torch`:
   scan_layout     tpu_msm_scan_layout                ops/cuda_curve.py
   scan_madd_sorted tpu_msm_scan_madd_sorted          ops/cuda_curve.py
   digit_hist      tpu_msm_digit_hist                 ops/hist.py
+  digit_sort      tpu_msm_digit_sort                 ops/sort.py
 
 Each operator has three implementations, registered by `define`:
   * CUDA: the kernel launch on the tensors' device and current stream, and
@@ -31,12 +32,13 @@ that fails to build or to launch raises. No operator writes its inputs;
 every output is a new tensor.
 
 The choices a wrapper makes from the card (which of two kernels, the
-histogram's launch plan, the chunks of scan_madd_rows) are operator
+histogram's launch plan, the chunks of scan_madd_rows, how the digit sort
+finds a key's peers) are operator
 arguments, so an exported graph records them. The operators are registered
 with the low-level `torch.library.Library` API, whose dispatch costs the
 least host time of PyTorch's registration APIs; the wrappers in
-`ops/cuda_curve.py` and `ops/hist.py` keep their names and signatures and
-call the operators.
+`ops/cuda_curve.py`, `ops/hist.py` and `ops/sort.py` keep their names and
+signatures and call the operators.
 """
 
 from __future__ import annotations
@@ -48,7 +50,7 @@ LIB = torch.library.Library(NAMESPACE, "DEF")
 
 OPS = ("scan_madd", "padd", "window_tail", "horner", "fold_add", "pmadd",
        "jac_madd", "jac_add", "scan_madd_rows", "montmul_chain", "digit_hist",
-       "scan_layout", "scan_madd_sorted")
+       "scan_layout", "scan_madd_sorted", "digit_sort")
 
 
 def define(schema: str, *, cuda, cpu, fake) -> torch._ops.OpOverload:
@@ -65,4 +67,4 @@ def define(schema: str, *, cuda, cpu, fake) -> torch._ops.OpOverload:
 def register() -> None:
     """Import the modules that define the operators. A serialized program
     that names `tpu_msm_torch::<op>` loads only after this."""
-    from tpu_msm_torch.ops import cuda_curve, hist  # noqa: F401
+    from tpu_msm_torch.ops import cuda_curve, hist, sort  # noqa: F401

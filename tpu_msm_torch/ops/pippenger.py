@@ -9,14 +9,15 @@ bucket_b = X(s_{b+1}) - X(s_b), each window sum telescopes:
 Two routes compute the window sums, as in the JAX package:
 
 * the fused route (`_fused_sums`): `_window_heavy` per group of windows
-  (`window_group_size`; for the group one stable digit sort, one
-  scan_madd_sorted launch, the scan that reads each step's point from the
-  point-major table in sort order, one histogram launch and one gather of
-  the prefix sums at the bucket boundaries), then
+  (`window_group_size`; for the group one stable digit sort, the radix
+  sort of `ops/sort.py`, one scan_madd_sorted launch, the scan that reads
+  each step's point from the point-major table in sort order, one
+  histogram launch and one gather of the prefix sums at the bucket
+  boundaries), then
   `_sides_batched` over all windows (inter-lane carries, the X(s_b) fold
   and rolled tree, the window_tail kernel);
 * the per-window route (`_per_window_sums`, the JAX package's `_msm_window`
-  fallback): per window, a sort of point indices, one `pmadd` launch per
+  fallback): per window, the digit sort, one `pmadd` launch per
   scan step, a Hillis–Steele scan of the lane totals, the query adds,
   `ec_reduce` and the window_tail kernel.
 
@@ -33,10 +34,11 @@ on the JAX CPU backend, and the fused ones projectively equal to it.
 `horner_fold` then joins the windows (the horner kernel). Every other EC
 add goes through `ec_add` or `ec_madd` (the padd and pmadd kernels on the
 card, their plain versions on the CPU), every fold through the fold_add
-kernel. The fused route's scan reads the sorted points itself, though the
-JAX package left their layout to XLA: a point's 64-byte row, in place of
-a layout written and read back. Everything else is plain torch, as the JAX
-package left it to XLA.
+kernel. The JAX package left the digit sort and the sorted layout to XLA;
+the port sorts by its own radix sort kernel (`ops/sort.digit_sort`, an
+int32 permutation), and the fused route's scan reads the sorted points
+itself: a point's 64-byte row, in place of a layout written and read back.
+Everything else is plain torch, as the JAX package left it to XLA.
 
 With `cfg.glv` both routes first split every scalar by the GLV
 endomorphism (`_glv_split`, `pippenger.py:583-598` of the JAX package):
@@ -56,7 +58,7 @@ import dataclasses
 
 import torch
 
-from tpu_msm_torch.ops import curve, field, glv, hist, u256
+from tpu_msm_torch.ops import curve, field, glv, hist, sort, u256
 from tpu_msm_torch.ops.cuda_curve import (fold_add, horner, padd, pmadd,
                                           scan_layout, scan_madd_sorted,
                                           window_tail)
@@ -66,11 +68,14 @@ from tpu_msm_torch.utils.config import MsmConfig, select_config
 # Coordinate row blocks of the scan kernel's 48-row output.
 _XYZ = (slice(0, 16), slice(16, 32), slice(32, 48))
 
-# What one window of a `_window_heavy` group holds per padded point: the
-# sorted digit, the sort's int64 permutation (which the scan reads) and the
-# scan's 48 output rows. The point-major table that the scan reads
+# What one window of a `_window_heavy` group holds per padded point at its
+# peak: the sorted digit (where the segment starts read it), the sort's
+# int32 permutation (which the scan reads), and then the larger of the
+# sort's scratch (its first pass's keys and indices, freed when the sort
+# returns) and the scan's 48 output rows, which live one after the other:
+# 4 + 4 + 192 = 200 bytes. The point-major table that the scan reads
 # (`scan_operands`, 64 or 96 bytes a point) is one for all the groups.
-GROUP_BYTES_PER_POINT = 4 + 8 + 4 * 48
+GROUP_BYTES_PER_POINT = 4 + 4 + max(sort.SCRATCH_BYTES_PER_KEY, 4 * 48)
 # The group budget on the CPU, which has no device memory to take 1/8 of.
 CPU_GROUP_BUDGET = 1 << 30
 
@@ -150,23 +155,26 @@ def pack_u16_rows(a: torch.Tensor) -> torch.Tensor:
     return torch.where(v >= 1 << 31, v - (1 << 32), v).to(torch.int32)
 
 
-def _sorted_scan_inputs(digits, negm, rows, lanes: int):
+def _sorted_scan_inputs(digits, negm, rows, lanes: int,
+                        key_bits: int = sort.MAX_KEY_BITS):
     """Stable digit sort of each of G windows, and the sorted points in the
     scan kernel's (G, 8, steps, lanes) layout: sorted position p sits at
     lane p // steps, step p % steps (`pippenger.py:302-305`). Two steps:
-    `torch.sort` of the digits, then one `scan_layout` launch, which takes
-    each column's point as one row of the point-major table (the JAX
-    package's "rank" strategy, `pippenger.py:289-297`; both JAX `sort_impl`
-    values give this permutation). The main path no longer writes this
-    layout (`_window_heavy` hands the permutation to scan_madd_sorted);
-    the sort bench (b) and the layout's tests call this.
+    the digit sort (`sort.digit_sort` of `key_bits`-bit digits, its sorted
+    digits and int32 permutation; 18 bits by default, the most any window
+    width gives), then one `scan_layout` launch, which takes each column's
+    point as one row of the point-major table (the JAX package's "rank"
+    strategy, `pippenger.py:289-297`; both JAX `sort_impl` values give this
+    permutation). The main path does not write this layout
+    (`_window_heavy` hands the permutation to scan_madd_sorted); the sort
+    bench (b) and the layout's tests call this.
 
     digits: (G, n_pad); negm: (G, n_pad) negation masks or None; rows:
     (n_pad, 16) packed words of each point, [x | y], or (n_pad, 24)
     [x | y | -y] with negm, where window g takes -y at the points its mask
     negates (`scan_operands`). Returns (sorted_digits (G, n_pad), sgx,
     sgy)."""
-    sorted_digits, perm = torch.sort(digits, dim=1, stable=True)
+    sorted_digits, perm = sort.digit_sort(digits, key_bits, want_keys=True)
     return (sorted_digits, *scan_layout(perm, rows, negm, lanes))
 
 
@@ -178,7 +186,8 @@ def window_group_size(w: int, n_pad: int, device) -> int:
     (`torch.cuda.get_device_properties(device).total_memory`), or the fixed
     CPU_GROUP_BUDGET on the CPU. At 2^20 points on the H100 that is all 16
     windows of c = 16 in one group (about 3.4 GB of transients, one scan
-    launch of 1024 blocks); at 2^24 three windows a group."""
+    launch of 1024 blocks); at 2^24 three windows a group, at 2^22 (a
+    streamed chunk) twelve."""
     return max(1, min(w, group_budget(device)
                       // (n_pad * GROUP_BYTES_PER_POINT)))
 
@@ -220,8 +229,10 @@ def _segment_starts(digits, m: int, cfg: MsmConfig):
 
 def _window_heavy(digits, negm, rows, n: int, cfg: MsmConfig):
     """The heavy stages of a group of G windows, each stage once for the
-    group: the sort, the scan launch (scan_madd_sorted, which reads each
-    step's point from `rows` by the sort's permutation), the segment starts
+    group: the digit sort (`sort.digit_sort`, one call: the radix sort's
+    two passes over the (m + 1).bit_length() bits of the digits and the
+    sentinel), the scan launch (scan_madd_sorted, which reads each step's
+    point from `rows` by the sort's int32 permutation), the segment starts
     (one digit_hist launch with "hist"), and one gather of the prefix sums
     at the bucket boundaries. digits, negm: (G, n_pad) rows of the group's
     windows (negm None for unsigned digits); rows the point-major table as
@@ -230,23 +241,27 @@ def _window_heavy(digits, negm, rows, n: int, cfg: MsmConfig):
     Returns the group's small arrays, stacked: the lane totals
     (G, 48, lanes), the prefix sums at the m+1 queries s_1..s_m, n
     (G, 48, m+1), the query lanes and the zero-query mask (G, m+1). The
-    group's O(G·n) transients die here, before the next group starts:
-    GROUP_BYTES_PER_POINT (204) bytes a point and window, the sorted
-    digits, the sort's int64 permutation and the 48-row scan output, which
-    `window_group_size` keeps within 1/8 of the card's memory (about 3.4 GB
-    for 16 windows at 2^20; at 2^24 a group of three windows holds about
-    10 GB)."""
+    group's O(G·n) transients die here, before the next group starts: the
+    sort's permutation (4 bytes a point and window) and its sorted digits
+    (4, written only where the segment starts read them: not with "hist",
+    which counts the unsorted digits), then the sort's scratch (8, freed as
+    it returns) or the 48-row scan output (192), GROUP_BYTES_PER_POINT
+    (200) at the peak, which `window_group_size` keeps within 1/8 of the
+    card's memory (about 3.4 GB for 16 windows at 2^20; at 2^24 a group of
+    three windows holds about 10 GB)."""
     m = cfg.buckets_per_window()
     g = digits.shape[0]
     lanes = cfg.scan_lanes
     steps = digits.shape[1] // lanes
-    sorted_digits, perm = torch.sort(digits, dim=1, stable=True)
+    # "hist" is order-free: it counts the unsorted digits.
+    hist_starts = cfg.segment_starts == "hist"
+    sorted_digits, perm = sort.digit_sort(digits, sort.key_bits(m),
+                                          want_keys=not hist_starts)
     ys = scan_madd_sorted(perm, rows, negm, lanes).view(
         g, 48, steps * lanes)  # one launch
     del perm
-    # "hist" is order-free: it counts the unsorted digits.
-    starts = _segment_starts(
-        digits if cfg.segment_starts == "hist" else sorted_digits, m, cfg)
+    starts = _segment_starts(digits if hist_starts else sorted_digits, m,
+                             cfg)
     queries = torch.cat([starts, starts.new_full((g, 1), n)], dim=1)
     is_zero = queries == 0
     pos = queries.clamp(min=1) - 1
@@ -410,7 +425,8 @@ def _msm_window(digits, negm, px, py, n: int, cfg: MsmConfig) -> ProjPoint:
         py_w = torch.where(negm_cols[None, :], py[1], py[0])
     # lax.sort_key_val(digits, min(i, n)) is stable: its values are the
     # stable order with the padding positions sent to column n.
-    sorted_digits, order = torch.sort(digits, stable=True)
+    sorted_digits, order = sort.digit_sort(digits, sort.key_bits(m),
+                                           want_keys=True)
     sorted_idx = order.clamp(max=n)
     # Lane l scans sorted positions [l*steps, (l+1)*steps); step k of every
     # lane is one contiguous (16, lanes) operand.

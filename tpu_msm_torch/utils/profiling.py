@@ -126,11 +126,12 @@ def trace(path: str):
 
 def profile_stages(log_n: int, cfg=None, seed: int = 1) -> dict:
     """Seconds of each stage of the MSM at 2^log_n points on the card:
-    `sort_1window` (window 0's digits sorted, the coordinates gathered by
-    the permutation), `window_sums_all` and `end_to_end` (`msm_device`).
+    `sort_1window` (window 0's unsigned digits sorted by `sort.digit_sort`,
+    the coordinates gathered by its permutation), `window_sums_all` and
+    `end_to_end` (`msm_device`).
     The inputs are `preprocess.generate_msm_instances(log_n, 1, seed)`."""
     from tpu_msm_torch import msm_device
-    from tpu_msm_torch.ops import pippenger
+    from tpu_msm_torch.ops import pippenger, sort
     from tpu_msm_torch.ops.curve import AffinePoint
     from tpu_msm_torch.utils import interop, preprocess
     from tpu_msm_torch.utils.config import select_config
@@ -142,10 +143,12 @@ def profile_stages(log_n: int, cfg=None, seed: int = 1) -> dict:
     [inst] = preprocess.generate_msm_instances(log_n, 1, seed=seed)
     px, py, sl = interop.limbs_to_device(inst.px, inst.py, inst.scalars, dev)
 
+    unsigned = dataclasses.replace(cfg, signed_digits=False)
+
     def stage_sort(sl, px, py):
-        digits = pippenger.window_digits(
-            sl, dataclasses.replace(cfg, signed_digits=False))[0]
-        _, perm = torch.sort(digits, stable=True)
+        digits = pippenger.window_digits(sl, unsigned)[0]
+        _, perm = sort.digit_sort(
+            digits, sort.key_bits(unsigned.buckets_per_window()))
         return px.index_select(1, perm), py.index_select(1, perm)
 
     results = {
