@@ -39,6 +39,7 @@ from tpu_msm_torch.ops import pippenger
 from tpu_msm_torch.ops.curve import AffinePoint, ProjPoint
 from tpu_msm_torch.utils import interop
 from tpu_msm_torch.utils.config import MsmConfig, select_config
+from tpu_msm_torch.utils.profiling import span
 
 __version__ = "0.1.0"
 
@@ -110,8 +111,9 @@ def msm(points, scalars, cfg: MsmConfig | None = None, device=None) -> Affine:
         if cfg is None:
             cfg = select_config(n, dev)
         res = msm_device(*interop.limbs_to_device(px, py, slimbs, dev), cfg)
-    [pt] = interop.proj_limbs_to_affine_points(
-        *(interop.tensor_to_limbs(a) for a in res))
+    with span("tpu_msm_torch.msm.readback"):
+        [pt] = interop.proj_limbs_to_affine_points(
+            *(interop.tensor_to_limbs(a) for a in res))
     return pt
 
 
@@ -157,22 +159,24 @@ def msm_best(scalars, points, device=None) -> Affine:
     device pipeline (`msm`, streamed above STREAM_THRESHOLD) from there up.
     Limb tensors on the card stay there (the zero scan and filter run where
     they lie); only the native engine's inputs come to the host."""
-    dev = interop.resolve_device(device)
-    px, py, slimbs = _coerce_inputs(scalars, points)
-    n = slimbs.shape[1]
-    if n == 0:
-        return None
-    nonzero = (slimbs != 0).any(0)
-    num_zeros = n - int(nonzero.sum())
-    if num_zeros == n:
-        return None
-    if num_zeros >= ZERO_FILTER_THRESHOLD * n:
-        px, py, slimbs = (a[:, nonzero] for a in (px, py, slimbs))
-    if slimbs.shape[1] < CPU_THRESHOLD:
-        from tpu_msm_torch.bindings import native
+    with span("tpu_msm_torch.msm_best"):
+        dev = interop.resolve_device(device)
+        px, py, slimbs = _coerce_inputs(scalars, points)
+        n = slimbs.shape[1]
+        if n == 0:
+            return None
+        with span("tpu_msm_torch.msm_best.zero_scan"):
+            nonzero = (slimbs != 0).any(0)
+            num_zeros = n - int(nonzero.sum())
+            if num_zeros == n:
+                return None
+            if num_zeros >= ZERO_FILTER_THRESHOLD * n:
+                px, py, slimbs = (a[:, nonzero] for a in (px, py, slimbs))
+        if slimbs.shape[1] < CPU_THRESHOLD:
+            from tpu_msm_torch.bindings import native
 
-        if native.available():
-            return native.msm(*(interop.tensor_to_limbs(a)
-                                if isinstance(a, torch.Tensor) else a
-                                for a in (px, py, slimbs)))
-    return msm((px, py), slimbs, device=dev)
+            if native.available():
+                return native.msm(*(interop.tensor_to_limbs(a)
+                                    if isinstance(a, torch.Tensor) else a
+                                    for a in (px, py, slimbs)))
+        return msm((px, py), slimbs, device=dev)

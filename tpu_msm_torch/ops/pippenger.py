@@ -50,6 +50,11 @@ Dropped from the JAX fused route: the `_FUSED_MAX_LANES // w` fanout clamp
 and the query padding to 4096. They change only the association of EC
 adds, so window sums stay projectively equal. Above STREAM_THRESHOLD
 `msm` runs this pipeline a chunk at a time (`ops/streaming.py`).
+
+While a profiler records, the fused route's stages each open a span
+(`utils/profiling.span`): `tpu_msm_torch.pippenger.operands`
+(`scan_operands`), `.group` (`_window_heavy`, one a window group), `.sides`
+(`_sides_batched`) and `.horner` (`horner_fold`, every route).
 """
 
 from __future__ import annotations
@@ -64,6 +69,7 @@ from tpu_msm_torch.ops.cuda_curve import (fold_add, horner, padd, pmadd,
                                           window_tail)
 from tpu_msm_torch.ops.curve import AffinePoint, ProjPoint
 from tpu_msm_torch.utils.config import MsmConfig, select_config
+from tpu_msm_torch.utils.profiling import span
 
 # Coordinate row blocks of the scan kernel's 48-row output.
 _XYZ = (slice(0, 16), slice(16, 32), slice(32, 48))
@@ -249,30 +255,31 @@ def _window_heavy(digits, negm, rows, n: int, cfg: MsmConfig):
     (200) at the peak, which `window_group_size` keeps within 1/8 of the
     card's memory (about 3.4 GB for 16 windows at 2^20; at 2^24 a group of
     three windows holds about 10 GB)."""
-    m = cfg.buckets_per_window()
-    g = digits.shape[0]
-    lanes = cfg.scan_lanes
-    steps = digits.shape[1] // lanes
-    # "hist" is order-free: it counts the unsorted digits.
-    hist_starts = cfg.segment_starts == "hist"
-    sorted_digits, perm = sort.digit_sort(digits, sort.key_bits(m),
-                                          want_keys=not hist_starts)
-    ys = scan_madd_sorted(perm, rows, negm, lanes).view(
-        g, 48, steps * lanes)  # one launch
-    del perm
-    starts = _segment_starts(digits if hist_starts else sorted_digits, m,
-                             cfg)
-    queries = torch.cat([starts, starts.new_full((g, 1), n)], dim=1)
-    is_zero = queries == 0
-    pos = queries.clamp(min=1) - 1
-    lq = pos // steps
-    # Column k*lanes + l of the flat prefix array is step k of lane l.
-    flat = ((pos % steps) * lanes + lq).to(torch.int64)
-    loc48 = torch.gather(ys, 2, flat[:, None].expand(g, 48, m + 1))
-    # A copy, not a view: a view would keep the group's whole prefix
-    # array alive until the sides stage (16 x 201 MB at 2^20).
-    totals = ys[:, :, (steps - 1) * lanes:].clone()
-    return totals, loc48, lq, is_zero
+    with span("tpu_msm_torch.pippenger.group"):
+        m = cfg.buckets_per_window()
+        g = digits.shape[0]
+        lanes = cfg.scan_lanes
+        steps = digits.shape[1] // lanes
+        # "hist" is order-free: it counts the unsorted digits.
+        hist_starts = cfg.segment_starts == "hist"
+        sorted_digits, perm = sort.digit_sort(digits, sort.key_bits(m),
+                                              want_keys=not hist_starts)
+        ys = scan_madd_sorted(perm, rows, negm, lanes).view(
+            g, 48, steps * lanes)  # one launch
+        del perm
+        starts = _segment_starts(digits if hist_starts else sorted_digits, m,
+                                 cfg)
+        queries = torch.cat([starts, starts.new_full((g, 1), n)], dim=1)
+        is_zero = queries == 0
+        pos = queries.clamp(min=1) - 1
+        lq = pos // steps
+        # Column k*lanes + l of the flat prefix array is step k of lane l.
+        flat = ((pos % steps) * lanes + lq).to(torch.int64)
+        loc48 = torch.gather(ys, 2, flat[:, None].expand(g, 48, m + 1))
+        # A copy, not a view: a view would keep the group's whole prefix
+        # array alive until the sides stage (16 x 201 MB at 2^20).
+        totals = ys[:, :, (steps - 1) * lanes:].clone()
+        return totals, loc48, lq, is_zero
 
 
 def _win_roll(a, wins: int, sh: int, seg: int):
@@ -290,70 +297,76 @@ def _window_tail(x_n: ProjPoint, sum_starts: ProjPoint,
         cfg.signed_digits))
 
 
-def _sides_batched(totals48, loc48, lq, is_zero, cfg: MsmConfig) -> ProjPoint:
+def _sides_batched(groups, cfg: MsmConfig) -> ProjPoint:
     """All windows' side stages as full-width batched ops
-    (`pippenger.py:374-482`). Inputs are _window_heavy's outputs of all
-    groups, concatenated: totals48 (W, 48, L), loc48 (W, 48, Q), lq (W, Q),
+    (`pippenger.py:374-482`). `groups` holds _window_heavy's outputs, one
+    tuple a group of windows, which are concatenated here first (inside the
+    stage's span): totals48 (W, 48, L), loc48 (W, 48, Q), lq (W, Q),
     is_zero (W, Q). Returns (W, 16, 1) window sums."""
-    w, _, lanes = totals48.shape
-    q = loc48.shape[-1]
-    m = cfg.buckets_per_window()
-    dev = totals48.device
+    with span("tpu_msm_torch.pippenger.sides"):
+        totals48, loc48, lq, is_zero = (torch.cat(s) for s in zip(*groups))
+        w, _, lanes = totals48.shape
+        q = loc48.shape[-1]
+        m = cfg.buckets_per_window()
+        dev = totals48.device
 
-    def rows(a, s, width):  # (W, 48, X) -> (16, W*X) for one coordinate
-        return a[:, s].permute(1, 0, 2).reshape(16, w * width)
+        def rows(a, s, width):  # (W, 48, X) -> (16, W*X) for one coordinate
+            return a[:, s].permute(1, 0, 2).reshape(16, w * width)
 
-    # Inter-lane inclusive scan, all windows at once, window-local rolls.
-    t = ProjPoint(*(rows(totals48, s, lanes) for s in _XYZ))
-    lane_idx = torch.arange(lanes, device=dev).repeat(w)
-    for i in range(_ceil_log2(lanes)):
-        sh = 1 << i
-        rolled = ProjPoint(*(_win_roll(a, w, sh, lanes) for a in t))
-        t = curve.select_point(lane_idx >= sh, ec_add(t, rolled), t)
-    carry = curve.select_point(
-        lane_idx >= 1, ProjPoint(*(_win_roll(a, w, 1, lanes) for a in t)),
-        curve.proj_infinity((w * lanes,), dev))  # exclusive lane carries
+        # Inter-lane inclusive scan, all windows at once, window-local rolls.
+        t = ProjPoint(*(rows(totals48, s, lanes) for s in _XYZ))
+        lane_idx = torch.arange(lanes, device=dev).repeat(w)
+        for i in range(_ceil_log2(lanes)):
+            sh = 1 << i
+            rolled = ProjPoint(*(_win_roll(a, w, sh, lanes) for a in t))
+            t = curve.select_point(lane_idx >= sh, ec_add(t, rolled), t)
+        carry = curve.select_point(
+            lane_idx >= 1, ProjPoint(*(_win_roll(a, w, 1, lanes) for a in t)),
+            curve.proj_infinity((w * lanes,), dev))  # exclusive lane carries
 
-    # Lane carry at each query's lane plus the in-lane prefix: X(s_b).
-    idx = lq.to(torch.int64)[None].expand(16, w, q)
-    car = ProjPoint(*(a.reshape(16, w, lanes).gather(2, idx).reshape(16, w * q)
-                      for a in carry))
-    local = ProjPoint(*(rows(loc48, s, q) for s in _XYZ))
-    xvals = curve.select_point(is_zero.reshape(-1),
-                               curve.proj_infinity((w * q,), dev),
-                               ec_add(car, local))
-    xv = ProjPoint(*(a.reshape(16, w, q) for a in xvals))
-    x_n = ProjPoint(*(a[:, :, m] for a in xv))  # (16, W)
+        # Lane carry at each query's lane plus the in-lane prefix: X(s_b).
+        idx = lq.to(torch.int64)[None].expand(16, w, q)
+        car = ProjPoint(*(a.reshape(16, w, lanes).gather(2, idx)
+                          .reshape(16, w * q) for a in carry))
+        local = ProjPoint(*(rows(loc48, s, q) for s in _XYZ))
+        xvals = curve.select_point(is_zero.reshape(-1),
+                                   curve.proj_infinity((w * q,), dev),
+                                   ec_add(car, local))
+        xv = ProjPoint(*(a.reshape(16, w, q) for a in xvals))
+        x_n = ProjPoint(*(a[:, :, m] for a in xv))  # (16, W)
 
-    # Each window's X(s_b) batch, padded to a power of two with infinities.
-    m_pad = 1 << _ceil_log2(m)
-    x_starts = ProjPoint(*(a[:, :, :m] for a in xv))
-    if m_pad != m:
-        inf = curve.proj_infinity((w, m_pad - m), dev)
-        x_starts = ProjPoint(*(torch.cat([a, b], dim=-1)
-                               for a, b in zip(x_starts, inf)))
-    m = m_pad
+        # Each window's X(s_b) batch, padded to a power of two with infinities.
+        m_pad = 1 << _ceil_log2(m)
+        x_starts = ProjPoint(*(a[:, :, :m] for a in xv))
+        if m_pad != m:
+            inf = curve.proj_infinity((w, m_pad - m), dev)
+            x_starts = ProjPoint(*(torch.cat([a, b], dim=-1)
+                                   for a, b in zip(x_starts, inf)))
+        m = m_pad
 
-    # Fold each window's batch down to `fanout` lanes, then a window-local
-    # rolled tree; lane 0 of each window ends with the window's sum.
-    fanout = 1 << (cfg.reduce_fanout.bit_length() - 1)
-    if m > fanout:
-        steps_f = m // fanout
-        pts = ProjPoint(*fold_add(*(
-            a.reshape(16, w, fanout, steps_f).permute(0, 3, 1, 2)
-            .reshape(16, steps_f, w * fanout).contiguous() for a in x_starts)))
-        width = fanout
-    else:
-        pts = ProjPoint(*(a.reshape(16, w * m) for a in x_starts))
-        width = m
-    for i in range(_ceil_log2(width)):
-        rolled = ProjPoint(*(_win_roll(a, w, -(1 << i), width) for a in pts))
-        pts = ec_add(pts, rolled)
-    sum_starts = ProjPoint(*(a.reshape(16, w, width)[:, :, 0] for a in pts))
+        # Fold each window's batch down to `fanout` lanes, then a window-local
+        # rolled tree; lane 0 of each window ends with the window's sum.
+        fanout = 1 << (cfg.reduce_fanout.bit_length() - 1)
+        if m > fanout:
+            steps_f = m // fanout
+            pts = ProjPoint(*fold_add(*(
+                a.reshape(16, w, fanout, steps_f).permute(0, 3, 1, 2)
+                .reshape(16, steps_f, w * fanout).contiguous()
+                for a in x_starts)))
+            width = fanout
+        else:
+            pts = ProjPoint(*(a.reshape(16, w * m) for a in x_starts))
+            width = m
+        for i in range(_ceil_log2(width)):
+            rolled = ProjPoint(*(_win_roll(a, w, -(1 << i), width)
+                                 for a in pts))
+            pts = ec_add(pts, rolled)
+        sum_starts = ProjPoint(*(a.reshape(16, w, width)[:, :, 0]
+                                 for a in pts))
 
-    # window_sum = M·X(n) - sum_b X(s_b), all windows in one launch.
-    out = _window_tail(x_n, sum_starts, cfg)  # (16, W)
-    return ProjPoint(*(a.permute(1, 0)[:, :, None] for a in out))
+        # window_sum = M·X(n) - sum_b X(s_b), all windows in one launch.
+        out = _window_tail(x_n, sum_starts, cfg)  # (16, W)
+        return ProjPoint(*(a.permute(1, 0)[:, :, None] for a in out))
 
 
 # --------------------------------------------------------------------------
@@ -536,13 +549,15 @@ def scan_operands(points: AffinePoint, scalar_limbs, cfg: MsmConfig):
     or (n_pad, 24) [x | y | -y] with signed digits, built once a call (64
     or 96 bytes a point), so that each window's layout reads a point as one
     64-byte row."""
-    points, cfg, n, digits, negm, y_neg = _digits(points, scalar_limbs, cfg)
-    coords = (points.x, points.y) + (() if y_neg is None else (y_neg,))
-    # The padding positions carry the (0, 0) affine infinity: the scan
-    # skips it.
-    rows = _pad_cols(torch.cat([pack_u16_rows(a) for a in coords]),
-                     digits.shape[1] - n, 0).t().contiguous()
-    return cfg, n, digits, negm, rows
+    with span("tpu_msm_torch.pippenger.operands"):
+        points, cfg, n, digits, negm, y_neg = _digits(points, scalar_limbs,
+                                                      cfg)
+        coords = (points.x, points.y) + (() if y_neg is None else (y_neg,))
+        # The padding positions carry the (0, 0) affine infinity: the scan
+        # skips it.
+        rows = _pad_cols(torch.cat([pack_u16_rows(a) for a in coords]),
+                         digits.shape[1] - n, 0).t().contiguous()
+        return cfg, n, digits, negm, rows
 
 
 def _fused_sums(points: AffinePoint, scalar_limbs, cfg: MsmConfig) -> ProjPoint:
@@ -555,7 +570,7 @@ def _fused_sums(points: AffinePoint, scalar_limbs, cfg: MsmConfig) -> ProjPoint:
                             None if negm is None else negm[s:s + group],
                             rows, n, cfg)
               for s in range(0, w, group)]
-    return _sides_batched(*(torch.cat(s) for s in zip(*smalls)), cfg=cfg)
+    return _sides_batched(smalls, cfg)
 
 
 def _per_window_sums(points: AffinePoint, scalar_limbs,
@@ -590,7 +605,8 @@ def window_sums(points: AffinePoint, scalar_limbs: torch.Tensor,
 def horner_fold(wsums: ProjPoint, c: int) -> ProjPoint:
     """Fold (W, 16, 1) window sums into the (16, 1) MSM result, top window
     first, c doublings between windows: one horner kernel launch."""
-    return ProjPoint(*horner(*(a.contiguous() for a in wsums), c))
+    with span("tpu_msm_torch.pippenger.horner"):
+        return ProjPoint(*horner(*(a.contiguous() for a in wsums), c))
 
 
 def msm_projective(points: AffinePoint, scalar_limbs: torch.Tensor,

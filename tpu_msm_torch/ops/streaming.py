@@ -19,6 +19,11 @@ Where the inputs live while the chunks run:
   its last copy has fired, and each chunk's compute waits for its copy's
   event. On the CPU the input already lies where the pipeline runs, and
   both settings slice it there.
+
+While a profiler records, each chunk opens the span
+`tpu_msm_torch.streaming.chunk` (its slices or staging, then its window
+sums) and each accumulate `tpu_msm_torch.streaming.accumulate`
+(`utils/profiling.span`).
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ from tpu_msm_torch.ops import pippenger
 from tpu_msm_torch.ops.curve import AffinePoint, ProjPoint
 from tpu_msm_torch.utils import interop
 from tpu_msm_torch.utils.config import MsmConfig, select_config
+from tpu_msm_torch.utils.profiling import span
 
 # Device bytes of one input point: x, y and the scalar, 16 int32 limbs each.
 INPUT_BYTES_PER_POINT = 3 * LIMBS * 4
@@ -84,23 +90,28 @@ def accumulate(acc: ProjPoint, ws: ProjPoint) -> ProjPoint:
     def rows(p):  # (W, 16, 1) -> (16, W)
         return ProjPoint(*(a.reshape(w, LIMBS).t() for a in p))
 
-    out = pippenger.ec_add(rows(acc), rows(ws))
-    return ProjPoint(*(a.t().reshape(w, LIMBS, 1).contiguous() for a in out))
+    with span("tpu_msm_torch.streaming.accumulate"):
+        out = pippenger.ec_add(rows(acc), rows(ws))
+        return ProjPoint(*(a.t().reshape(w, LIMBS, 1).contiguous()
+                           for a in out))
 
 
-def _resident_chunks(arrays, n: int, chunk: int, device):
+def _resident_chunks(arrays, starts: range, device):
     """The chunks as (px, py, scalars) slices of the input, put on `device`
-    once; the last one padded with zero scalars on the (0, 0) infinity."""
+    once, one at each of `starts` (range(0, n, chunk)); the last one padded
+    with zero scalars on the (0, 0) infinity."""
+    n, chunk = starts.stop, starts.step
     whole = interop.limbs_to_device(*arrays, device)
-    for lo in range(0, n, chunk):
+    for lo in starts:
         hi = min(lo + chunk, n)
         yield tuple(pippenger._pad_cols(a[:, lo:hi], lo + chunk - hi, 0)
                     .contiguous() for a in whole)
 
 
-def _host_chunks(arrays, n: int, chunk: int, device):
-    """The chunks as (px, py, scalars) tensors on the card, copied from the
-    host (uint32 numpy) one at a time, padded as _resident_chunks pads.
+def _host_chunks(arrays, starts: range, device):
+    """The chunks as (px, py, scalars) tensors on the card, one at each of
+    `starts`, copied from the host (uint32 numpy) one at a time, padded as
+    _resident_chunks pads.
 
     Two pinned staging buffers of (3, 16, chunk) and a copy stream. Chunk i
     is written into buffer i % 2 once the event behind that buffer's
@@ -109,7 +120,7 @@ def _host_chunks(arrays, n: int, chunk: int, device):
     event before it uses the chunk. The generator stages chunk i + 1 only
     after the caller has enqueued chunk i's compute, so the copy overlaps
     it."""
-    starts = range(0, n, chunk)
+    n, chunk = starts.stop, starts.step
     compute = torch.cuda.current_stream(device)
     copier = torch.cuda.Stream(device)
     staging = [torch.empty((3, LIMBS, chunk), dtype=torch.int32,
@@ -185,16 +196,23 @@ def msm_streamed(px, py, scalars, cfg: MsmConfig | None = None,
     if resident is None:
         resident = (all(_lies_on(a, dev) for a in arrays)
                     or resident_by_default(-(-n // chunk) * chunk, chunk, dev))
+    # One range of chunk starts, which the generator and the loop both step.
+    starts = range(0, n, chunk)
     if resident or dev.type != "cuda":
-        chunks = _resident_chunks(arrays, n, chunk, dev)
+        chunks = _resident_chunks(arrays, starts, dev)
     else:
         chunks = _host_chunks(
             tuple(interop.tensor_to_limbs(a) if isinstance(a, torch.Tensor)
-                  else a for a in arrays), n, chunk, dev)
+                  else a for a in arrays), starts, dev)
     acc = None
-    for cx, cy, cs in chunks:
-        ws = pippenger.window_sums(AffinePoint(cx, cy), cs, cfg)
+    for _ in starts:
+        # The chunk's span holds the generator's step: its slices, padding
+        # and copy (or the host route's staging), then its window sums.
+        with span("tpu_msm_torch.streaming.chunk"):
+            cx, cy, cs = next(chunks)
+            ws = pippenger.window_sums(AffinePoint(cx, cy), cs, cfg)
         acc = ws if acc is None else accumulate(acc, ws)
+    next(chunks, None)  # the generator's end: the host route's last waits
     return pippenger.horner_fold(acc, cfg.window_bits)
 
 

@@ -1,9 +1,11 @@
 """Per-stage profiling and roofline accounting on the card (counterpart of
 `tpu_msm/utils/profiling.py`).
 
+* `span(name)`: a named span of the program's stages in a torch.profiler
+  trace, and nothing when no profiler records.
 * `time_fn(fn, *args)`: median device time of a call by CUDA events.
 * `trace(path)`: a torch.profiler context (CPU and CUDA activity) that
-  writes a Chrome trace.
+  writes a Chrome trace, the program's spans in it.
 * `profile_stages(log_n, cfg)`: the JAX package's three stages on the
   port's own functions: one window's digit sort with its coordinate
   gathers, all window sums, and `msm_device` end to end.
@@ -30,7 +32,8 @@ at the SM clock's maximum (nvidia-smi's clocks.max.sm). At 132 SMs and
 the microbench holds it to account, and a measured rate above it would
 disprove it.
 
-Every measurement here needs a CUDA device and raises without one.
+Every measurement here needs a CUDA device and raises without one; `span`
+is no measurement, and runs on the CPU as on the card.
 """
 
 from __future__ import annotations
@@ -44,6 +47,10 @@ import torch
 
 log = logging.getLogger("tpu_msm_torch.profiling")
 
+# What `span` returns while no profiler records: one shared, stateless
+# context.
+_NO_SPAN = contextlib.nullcontext()
+
 IMAD_PER_CLOCK_PER_SM = 64
 WIDE_IMAD_SLOTS = 2
 # The multiply pipe's slots a product: 128 wide products, 8 low ones.
@@ -52,6 +59,19 @@ CIOS_MULS_PER_MONT_MUL = WIDE_IMAD_SLOTS * 8 * 16 + 8
 MADD_MONT_MULS = 11
 # RCB complete projective addition (Algorithm 7, a = 0): 12.
 ADD_MONT_MULS = 12
+
+
+def span(name: str):
+    """A context that marks one stage of the program under `name`: while a
+    torch.profiler records, `torch.profiler.record_function(name)`, a host
+    span in its trace on the profiler's clock, which holds the launches of
+    the stage's kernels (their runtime calls); otherwise a shared
+    `contextlib.nullcontext()`. Its whole cost without a profiler is one
+    check that the profiler is on. The stages' spans, all named
+    `tpu_msm_torch.<stage>`, are listed in the README's profiling section."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 def require_card(what: str = "profiling") -> torch.device:
@@ -113,7 +133,9 @@ def time_fn(fn, *args, iters: int = 2) -> float:
 @contextlib.contextmanager
 def trace(path: str):
     """torch.profiler over the block (CPU and CUDA activity); the Chrome
-    trace is written to `path` at its end."""
+    trace is written to `path` at its end. It carries the program's spans
+    (`span`) as `user_annotation` events on the calling thread, beside the
+    ops, the runtime calls and the kernels, whose launches they hold."""
     from torch.profiler import ProfilerActivity, profile
 
     require_card()
