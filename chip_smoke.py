@@ -10,8 +10,9 @@ C++ engine's result exactly:
 
   * the main path: `tpu_msm_torch.msm_best` at n = 2^12 and n = 2^20 on
     bench-style inputs, with the tuned row `select_config` reads from the
-    autotune table (the fused route: digit_sort, scan_madd_sorted and
-    digit_hist over groups of windows, padd, fold_add, window_tail, horner;
+    autotune table (the fused route: pack_rows once a call, digit_sort,
+    scan_madd_sorted and digit_hist over groups of windows, padd,
+    fold_add, window_tail, horner;
     no scan_layout or scan_madd launch, which the counts assert);
   * the per-window path: `tpu_msm_torch.msm` at n = 2^20 with 16384 scan
     lanes, once with each segment-start option (digit_sort, pmadd, padd,
@@ -81,7 +82,14 @@ C++ engine's result exactly:
 Phase 5 also runs the CLI's `22 1 stream 1` and `20 1 hybrid 1`, each of
 which holds its result against the native engine.
 
-Phase 2 holds digit_sort (csrc/radix_sort.cu, the sort stage's stable
+Phase 2 holds pack_rows (csrc/layout.cu, the point-major table the
+fused route's scan reads) against its plain version, the torch chain it
+replaced, bit for bit, at the tuned 2^20 row, MsmConfig()'s signed digits
+at 2^20 (three coordinates), a streamed 2^22 chunk and two ragged shapes,
+and times the two beside the bound (the coordinates read and the table
+written once); phases 3, 8, 10-12, 14, 15, 17 and 18 count its launches
+(one a call, one a chunk), and 11 and 17 hold it on the route's own
+inputs. It holds digit_sort (csrc/radix_sort.cu, the sort stage's stable
 LSD radix sort, whose int32 permutation the scans read) against its plain
 version, torch.sort(stable=True), bit for bit, the sorted keys and the
 permutation, at each shape the paths give it: the four groups below (the
@@ -528,7 +536,8 @@ KERNEL_FUNCTIONS = ("scan_madd_rows_kernel", "scan_madd_rows_totals_kernel",
                     "fold_add_kernel", "digit_hist_kernel",
                     "montmul_chain_kernel", "scan_layout_kernel",
                     "scan_madd_sorted_kernel", "radix_count_kernel",
-                    "radix_scan_kernel", "radix_scatter_kernel")
+                    "radix_scan_kernel", "radix_scatter_kernel",
+                    "pack_rows_kernel")
 
 
 def phase_build():
@@ -548,7 +557,8 @@ def phase_build():
             kernel = next((k for k in KERNEL_FUNCTIONS if k in line), None)
             # digit_hist_kernel<u16>, scan_layout_kernel<signed>,
             # scan_madd_sorted_kernel<signed>, radix_scatter_kernel<first,
-            # keys>: the mangled template arguments.
+            # keys>, pack_rows_kernel<coords>: the mangled template
+            # arguments.
             args = re.search(
                 r"(digit_hist|scan_layout|scan_madd_sorted)_kernelILb(\d)E",
                 line)
@@ -558,6 +568,9 @@ def phase_build():
             args = re.search(r"radix_scatter_kernelILb(\d)ELb(\d)E", line)
             if args:
                 kernel += "<first {} keys {}>".format(*args.groups())
+            args = re.search(r"pack_rows_kernelILi(\d)E", line)
+            if args:
+                kernel += f"<coords {args[1]}>"
         elif kernel and ("registers" in line or "spill" in line):
             detail = line.replace("ptxas info    :", "").strip()
             log(1, f"ptxas {kernel}: {detail}")
@@ -829,12 +842,12 @@ def phase_sorted_small(dev, entries):
     points with infinities (edge_affine), signed and unsigned, the digit
     sort's permutation of seeded digits, and three indices outside the
     table (-1, n_pad, 2^31 - 1), which the kernel takes as the (0, 0) point
-    and the plain version is handed as the index of a (0, 0) row."""
+    and the plain version is handed as the index of a (0, 0) row. The table
+    is pack_rows', held bit for bit against its plain version first."""
     import torch
 
     from tpu_msm_torch.ops import cuda_curve as cc
     from tpu_msm_torch.ops import field, sort
-    from tpu_msm_torch.ops.pippenger import pack_u16_rows
 
     check = checker(entries, 2)
     lanes, steps, g = 1024, 8, 2
@@ -849,8 +862,10 @@ def phase_sorted_small(dev, entries):
     fixed = bad.clone()
     fixed[(bad < 0) | (bad >= n_pad)] = 0
     for signed in (False, True):
-        coords = [ax, ay] + ([field.neg_mod(ay)] if signed else [])
-        rows = torch.cat([pack_u16_rows(c) for c in coords]).t().contiguous()
+        y_neg = field.neg_mod(ay) if signed else None
+        rows = cc.pack_rows(ax, ay, y_neg, n_pad)
+        check("pack_rows", [2 + signed, 16, n_pad, n_pad], rows,
+              cc.pack_rows_plain(ax, ay, y_neg, n_pad))
         negm = (torch.rand((g, n_pad), generator=gen, device=dev) < 0.5
                 if signed else None)
         for what, p, q in (("", perm, perm),
@@ -946,6 +961,72 @@ def sort_edges(dev, check, inputs):
         held_sort(check, what, d, bits)
 
 
+def pack_rows_work(k, n, n_pad):
+    """pack_rows' work: no arithmetic; the k (16, n) coordinates read once
+    (64 bytes a point each), the (n_pad, 8 k) table written once."""
+    return {"ops": 0, "bytes": 64 * k * n + 32 * k * n_pad}
+
+
+def time_pack_rows(dev, check, timed, inputs):
+    """pack_rows at the shapes the paths give it, held bit for bit against
+    its plain version (the torch chain it replaced: pack_u16_rows of each
+    coordinate, the concatenation, the zero padding and the transpose) and
+    the two timed beside the bound (pack_rows_work): the tuned 2^20 row
+    (x, y), MsmConfig()'s signed digits at 2^20 (x, y, -y), a streamed 2^22
+    chunk (the bench points tiled, the tuned row there), and two ragged
+    shapes of seeded limbs, (3, 16, 4133) padded to 5120 lanes and (2, 16,
+    777) to 900 (not a multiple of the kernel's 256-point tile). Returns
+    the records."""
+    import torch
+
+    from tpu_msm_torch import select_config
+    from tpu_msm_torch.ops import cuda_curve as cc
+    from tpu_msm_torch.ops import pippenger
+    from tpu_msm_torch.ops.curve import AffinePoint
+    from tpu_msm_torch.utils import interop
+    from tpu_msm_torch.utils.config import MsmConfig
+
+    def operands(log_n, cfg):
+        px, py, sl = (tile(a, 1 << log_n) for a in
+                      interop.limbs_to_device(*inputs[20], dev))
+        points, _, _, digits, _, y_neg = pippenger._digits(
+            AffinePoint(px, py), sl, cfg)
+        return points.x, points.y, y_neg, digits.shape[1]
+
+    def ragged(k, n, n_pad):
+        gen = torch.Generator(device=dev).manual_seed(SEED + 23 + k)
+        coords = [torch.randint(0, 1 << 16, (16, n), generator=gen,
+                                device=dev, dtype=torch.int32)
+                  for _ in range(k)]
+        return coords[0], coords[1], coords[2] if k == 3 else None, n_pad
+
+    cases = {"the tuned 2^20 row": operands(20, select_config(1 << 20, dev)),
+             "MsmConfig() at 2^20": operands(20, MsmConfig()),
+             "a streamed 2^22 chunk": operands(22, select_config(1 << 22,
+                                                                 dev)),
+             "ragged, signed": ragged(3, 4133, 5120),
+             "ragged tile": ragged(2, 777, 900)}
+    recs = []
+    for what, args in cases.items():
+        k = 2 if args[2] is None else 3
+        n, n_pad = args[0].shape[1], args[3]
+        shape = [k, 16, n, n_pad]
+        check("pack_rows", f"{shape} ({what})", cc.pack_rows(*args),
+              cc.pack_rows_plain(*args))
+        rec = timed("pack_rows", shape, lambda: cc.pack_rows(*args),
+                    lambda: cc.pack_rows_plain(*args),
+                    pack_rows_work(k, n, n_pad))
+        rec["what"] = what
+        log(2, f"pack_rows {shape} ({what}): kernel {rec['ms']:.4f} ms, "
+            f"{100 * rec['bound_ms'] / rec['ms']:.1f} % of the bytes' bound "
+            f"{rec['bound_ms']:.4f} ms; the torch chain (plain) "
+            f"{rec['plain_ms']:.4f} ms, {rec['plain_ms'] / rec['ms']:.1f} "
+            f"times the kernel")
+        recs.append(rec)
+    del cases
+    return recs
+
+
 def phase_layout(dev, entries, inputs):
     """scan_madd_sorted, and scan_layout, at each shape the paths give the
     sorted scan, on the sorted digits of that shape: the tuned 2^20 row and
@@ -962,7 +1043,8 @@ def phase_layout(dev, entries, inputs):
     shape: digit_sort held bit for bit against its plain version
     (held_sort), its permutation the one the two are handed; at the tuned
     row and the streamed group timed in turns with torch.sort (time_sort);
-    then sort_edges. First phase_sorted_small."""
+    then sort_edges. First phase_sorted_small, then pack_rows at each
+    shape the paths give it (time_pack_rows)."""
     import torch
 
     from tpu_msm_torch import select_config
@@ -975,6 +1057,8 @@ def phase_layout(dev, entries, inputs):
     phase_sorted_small(dev, entries)
     check = checker(entries, 2)
     timed = timer(2)
+    first, *others = time_pack_rows(dev, check, timed, inputs)
+    entries["pack_rows"].update(first, other_shapes=others)
 
     def bench_group(log_n, cfg):
         px, py, sl = interop.limbs_to_device(*inputs[log_n], dev)
@@ -1366,7 +1450,7 @@ def counters():
         ("jac_add", cc.jac_add), ("scan_madd_rows", cc.scan_madd_rows),
         ("montmul_chain", cc.montmul_chain), ("scan_layout", cc.scan_layout),
         ("scan_madd_sorted", cc.scan_madd_sorted),
-        ("digit_sort", sort.digit_sort))}
+        ("digit_sort", sort.digit_sort), ("pack_rows", cc.pack_rows))}
     kernels["padd_group"] = (cc.padd, "group_launches")
     kernels["fold_add_group"] = (cc.fold_add, "group_launches")
     kernels["pmadd_group"] = (cc.pmadd, "group_launches")
@@ -1375,7 +1459,7 @@ def counters():
               cc.pmadd_plain, cc.jac_madd_plain, cc.jac_add_plain,
               cc.scan_madd_rows_plain, cc.montmul_chain_plain,
               cc.scan_layout_plain, cc.scan_madd_sorted_plain,
-              sort.digit_sort_plain]
+              sort.digit_sort_plain, cc.pack_rows_plain]
     return kernels, plains
 
 
@@ -1387,8 +1471,8 @@ def reset_counts():
         fn.calls = 0
 
 
-MAIN_KERNELS = ("digit_sort", "scan_madd_sorted", "padd", "fold_add",
-                "digit_hist", "window_tail", "horner")
+MAIN_KERNELS = ("pack_rows", "digit_sort", "scan_madd_sorted", "padd",
+                "fold_add", "digit_hist", "window_tail", "horner")
 # The unfused pair scan_madd_sorted replaced: the fused route launches
 # neither.
 UNFUSED = ("scan_layout", "scan_madd")
@@ -1455,7 +1539,8 @@ def phase_e2e(dev, inputs, expected):
     dev_ms = cuda_ms(lambda: tpu_msm_torch.msm_device(dpx, dpy, dsl, cfg))
     log(3, f"msm_device n=2^20 on device-resident inputs: {dev_ms:.3f} ms "
         f"-> {(1 << 20) / dev_ms * 1e3:.1f} points/s")
-    # One call's launches and peak memory: ceil(W / G) scan launches (the
+    # One call's launches and peak memory: one pack_rows launch (the
+    # table), ceil(W / G) scan launches (the
     # sorted scan; no layout, no scan of a written layout), the
     # wide padd calls (lane-carry scan, query adds, rolled tree; each on the
     # kernel kernel_path gives its width) and one launch of each tail kernel.
@@ -1478,7 +1563,7 @@ def phase_e2e(dev, inputs, expected):
         .bit_length()}
     paths = {width: cc.kernel_path(width, sms) for width in padd_calls}
     fold_path = cc.kernel_path(sh["w"] * sh["fanout"], sms)
-    want = {"digit_sort": -(-sh["w"] // sh["g"]),
+    want = {"pack_rows": 1, "digit_sort": -(-sh["w"] // sh["g"]),
             "scan_madd_sorted": -(-sh["w"] // sh["g"]), "scan_layout": 0,
             "scan_madd": 0,
             "digit_hist": -(-sh["w"] // sh["g"]), "window_tail": 1,
@@ -1490,8 +1575,8 @@ def phase_e2e(dev, inputs, expected):
         raise AssertionError(f"launches of one msm_device call at 2^20: "
                              f"{one}, expected {want}")
     log(3, f"msm_device n=2^20: G = {sh['g']} of {sh['w']} windows a sort, "
-        f"scan and histogram launch; launches {json.dumps(one)} (digit sort "
-        f"{one['digit_sort']}, sorted scan "
+        f"scan and histogram launch; launches {json.dumps(one)} (table "
+        f"{one['pack_rows']}, digit sort {one['digit_sort']}, sorted scan "
         f"{one['scan_madd_sorted']}, layout {one['scan_layout']}, scan of a "
         f"layout {one['scan_madd']}, digit_hist "
         f"{one['digit_hist']}, padd {one['padd']}: "
@@ -2085,7 +2170,7 @@ def phase_glv(dev, inputs, expected):
         if got != expected[log_n]:
             raise AssertionError(f"GLV msm n=2^{log_n}: {got} != native "
                                  f"{expected[log_n]}")
-        read_counts(8, ("digit_sort", "scan_madd_sorted", "padd",
+        read_counts(8, ("pack_rows", "digit_sort", "scan_madd_sorted", "padd",
                         "digit_hist", "window_tail", "horner"), UNFUSED)
         log(8, f"GLV msm n=2^{log_n} == native engine (affine, exact)")
         dpx, dpy, dsl = interop.limbs_to_device(px, py, sl, dev)
@@ -2156,8 +2241,8 @@ def phase_options(dev, inputs, expected):
             raise AssertionError(f"msm_device n=2^{log_n} {change}: {got} != "
                                  f"the tuned row's {expected[log_n]}")
         hist_path = cfg.segment_starts in ("hist", "hist_cols")
-        one = read_counts(10, ("digit_sort", "scan_madd_sorted", "padd",
-                               "window_tail", "horner")
+        one = read_counts(10, ("pack_rows", "digit_sort", "scan_madd_sorted",
+                               "padd", "window_tail", "horner")
                           + (("digit_hist",) if hist_path else ()), UNFUSED)
         groups = -(-cfg.num_windows() // pippenger.window_group_size(
             cfg.num_windows(), 1 << log_n, dev))
@@ -2199,8 +2284,8 @@ class RouteSpy:
         from tpu_msm_torch.ops import hist, pippenger, sort
 
         self.targets = [(pippenger, name) for name in (
-            "scan_madd_sorted", "padd", "pmadd", "fold_add", "window_tail",
-            "horner")]
+            "pack_rows", "scan_madd_sorted", "padd", "pmadd", "fold_add",
+            "window_tail", "horner")]
         self.targets += [(hist, "digit_hist"), (sort, "digit_sort")]
         self.calls = {}  # (kernel, shape) -> {"launches": k, "args": ...}
 
@@ -2400,8 +2485,8 @@ def phase_stream(dev, entries):
         "msm_best 2^24 (streamed)"))
     peak = torch.cuda.max_memory_allocated()
     launches = read_counts(11, MAIN_KERNELS, UNFUSED)
-    want = {"scan_madd_sorted": chunks * groups, "window_tail": chunks,
-            "horner": 1}
+    want = {"pack_rows": chunks, "scan_madd_sorted": chunks * groups,
+            "window_tail": chunks, "horner": 1}
     if tpu_msm_torch.select_config(1 << chunk_log, dev).segment_starts in (
             "hist", "hist_cols"):
         want["digit_hist"] = chunks * groups
@@ -2490,8 +2575,8 @@ def phase_hybrid(dev, inputs, expected):
             f"hybrid share {share:.4f}"))
         log(12, f"msm_hybrid n=2^20 share {share:.4f} == native engine "
             f"(affine, exact) in {dt:.4f} s")
-    read_counts(12, ("digit_sort", "scan_madd_sorted", "padd", "window_tail",
-                     "horner"), UNFUSED)
+    read_counts(12, ("pack_rows", "digit_sort", "scan_madd_sorted", "padd",
+                     "window_tail", "horner"), UNFUSED)
     alone = [db.host_seconds(lambda: expected_is(
         tpu_msm_torch.msm((px, py), sl, device=dev), expected[20], "msm"))
         for _ in range(3)]
@@ -2978,13 +3063,14 @@ def phase_export(dev, inputs, expected, entries):
             pt, launches = _loaded_and_eager(17, "n=2^20", fn, args, cfg,
                                              MAIN_KERNELS, UNFUSED)
             expected_is(pt, expected[20], "the loaded program at 2^20")
-            _, calls = op_calls(lambda: fn(*args),
-                                ("digit_sort", "scan_madd_sorted"))
+            _, calls = op_calls(lambda: fn(*args), ("pack_rows", "digit_sort",
+                                                    "scan_madd_sorted"))
             shapes = check_route(17, entries, calls)
-            for kernel in ("digit_sort", "scan_madd_sorted"):
+            for kernel in ("pack_rows", "digit_sort", "scan_madd_sorted"):
                 entries[kernel]["export_shapes"] = shapes[kernel]
-            log(17, f"every digit_sort launch of the loaded program == its "
-                f"plain version, every scan_madd_sorted launch == the "
+            log(17, f"every pack_rows and digit_sort launch of the loaded "
+                f"program == its plain version, every scan_madd_sorted "
+                f"launch == the "
                 f"unfused pair and, on its first 8 steps, its plain "
                 f"version, on its own inputs: {shape_list(shapes)}")
             out, err = proc.communicate(timeout=300)
@@ -3281,6 +3367,11 @@ SOURCES = {
     # The scan with that stage's layout read, not written, before it.
     "scan_madd_sorted": (EC, f"{PC}:799, tpu_msm/ops/pippenger.py:289",
                          "main"),
+    # No pallas_call: the point-major table, left to XLA (pack_u16_rows,
+    # the padding, the concatenation and the transpose).
+    "pack_rows": ("tpu_msm_torch/csrc/layout.cu",
+                  "tpu_msm/ops/pippenger.py:633-636, "
+                  "tpu_msm/ops/pippenger.py:292", "main"),
     # No pallas_call: the sort stage's sort, left to XLA (sort_key_val).
     "digit_sort": ("tpu_msm_torch/csrc/radix_sort.cu",
                    "tpu_msm/ops/pippenger.py:291, "

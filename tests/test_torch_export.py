@@ -131,7 +131,8 @@ def _op_cases():
     words for the scan and the layout), the launch arguments as the
     wrappers pass them on the CPU; horner at W = 1 too, where the plain
     result is the input; the layout and the sorted scan with and without
-    masks; the digit sort with and without its sorted keys."""
+    masks; the digit sort with and without its sorted keys; the packed
+    table with and without -y, with padding rows and without."""
     rng = np.random.RandomState(11)
 
     def rows(*shape):
@@ -168,6 +169,8 @@ def _op_cases():
         ("scan_madd_sorted", (perm, words(12, 16), None, 3)),
         ("digit_sort", (digits, 4, True)),
         ("digit_sort", (digits, 4, False)),
+        ("pack_rows", (rows(16, 5), rows(16, 5), None, 8)),
+        ("pack_rows", (rows(16, 5), rows(16, 5), rows(16, 5), 5)),
     ]
 
 

@@ -69,6 +69,10 @@ NAME_EXCEPTIONS = {
     ("ops/u256.py", "U32"): (
         None, "jnp.uint32; the port holds u32 bit patterns in torch.int32 "
         "(torch's uint32 has no sort or gather on the card)"),
+    ("ops/pippenger.py", "pack_u16_rows"): (
+        "ops/cuda_curve.py:pack_u16_rows",
+        "beside the kernels that read its words and pack_rows' plain "
+        "version; ops/pippenger.py imports it, so callers find it there"),
     ("parallel/distributed.py", "global_mesh"): (
         "parallel/distributed.py:rank_device",
         "meshes become device lists: each rank names its card"),

@@ -48,7 +48,7 @@ KERNELS = ("scan_madd_kernel", "scan_madd_rows_kernel",
            "fold_add_kernel", "fold_add_group_kernel", "jac_madd_kernel",
            "jac_add_kernel", "digit_hist_kernel", "scan_layout_kernel",
            "scan_madd_sorted_kernel", "radix_count_kernel",
-           "radix_scan_kernel", "radix_scatter_kernel")
+           "radix_scan_kernel", "radix_scatter_kernel", "pack_rows_kernel")
 _DEVICE_CATS = {"kernel": None, "gpu_memcpy": "copies", "gpu_memset": "copies"}
 
 ROUTES = {"rule": pippenger.window_sums,

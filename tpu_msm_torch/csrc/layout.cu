@@ -1,6 +1,8 @@
-// The sort stage's layout for Hopper (sm_90a): each window's points, in the
-// order of its stable digit sort, gathered from the point-major table of
-// packed words into the scan kernel's lane-major (G, 8, steps, lanes)
+// The fused route's two layouts for Hopper (sm_90a): the point-major table
+// of packed words that the scan reads (`pack_rows_kernel`, at the end of
+// this file), and the sort stage's layout (`scan_layout_kernel`): each
+// window's points, in the order of its stable digit sort, gathered from
+// that table into the scan kernel's lane-major (G, 8, steps, lanes)
 // blocks, one launch for a group of G windows.
 //
 // Replaces no Pallas kernel: the JAX package left this stage to XLA
@@ -159,5 +161,94 @@ extern "C" int tpu_msm_scan_layout(const int* perm, const int* rows,
   else
     scan_layout_kernel<false><<<grid, kThreads, 0, s>>>(
         perm, table, negm, sgx, sgy, n_pad, (int)steps, lanes);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The point-major table of packed words (`ops/cuda_curve.py` `pack_rows`).
+//
+// Replaces no Pallas kernel: the JAX package builds this table with XLA
+// (tpu_msm/ops/pippenger.py:633-636, `pack_u16_rows` at :663, and the
+// concatenation and transpose at :292). The port's torch formulation
+// (`pack_rows_plain`) widened each limb half to int64 and took some 18
+// launches and about 11 bytes moved for each byte of the table.
+//
+// The function. coords are 2 or 3 (16, n) int32 arrays of u16 limbs: x, y
+// and, for signed digits, -y. Row p of the (n_pad, 8 * coords) int32 table
+// holds word j of coordinate c at column 8 c + j:
+//   rows[p, 8 c + j] = coord_c[2 j, p] | coord_c[2 j + 1, p] << 16
+// as a u32 bit pattern, and rows[p, :] = 0 for n <= p < n_pad (the (0, 0)
+// point, which the scan skips).
+//
+// What bounds it: bytes. A point reads 64 bytes a coordinate and writes 32
+// a coordinate; at (2, 16, 2^22) that is 805 MB, 0.24 ms at 3.35 TB/s.
+//
+// The design. A block takes a tile of 256 points, a thread a point:
+// - it reads the point's limbs, each limb row coalesced along n (a warp
+//   reads 128 contiguous bytes a row), all 32 or 48 loads in flight;
+// - it packs the limb pairs into words in registers and stages its row in
+//   shared memory, each row padded by one int4, so that the 16-byte stores
+//   of eight threads fall on distinct banks;
+// - the block then writes the tile's rows, contiguous in the table, as
+//   16-byte stores in order, so that a warp writes 512 contiguous bytes.
+// One pass over the inputs; the wrapper allocates the table, the kernel
+// nothing.
+
+namespace {
+
+constexpr int kPackPoints = 256;  // points a block, a thread a point
+
+template <int kCoords>
+__global__ void __launch_bounds__(kPackPoints)
+    pack_rows_kernel(const int* __restrict__ c0, const int* __restrict__ c1,
+                     const int* __restrict__ c2, int4* __restrict__ rows,
+                     long long n, long long n_pad) {
+  constexpr int kVecs = 2 * kCoords;  // int4s a row: 16 or 24 words
+  constexpr int kStaged = kVecs + 1;  // int4s a staged row
+  __shared__ int4 tile[kPackPoints * kStaged];
+  const long long p0 = (long long)blockIdx.x * kPackPoints;
+  const long long p = p0 + threadIdx.x;
+  const int* const coords[3] = {c0, c1, c2};
+
+  unsigned limb[kCoords][16];
+#pragma unroll
+  for (int c = 0; c < kCoords; ++c)
+#pragma unroll
+    for (int r = 0; r < 16; ++r)
+      limb[c][r] = p < n ? (unsigned)__ldg(coords[c] + r * n + p) : 0u;
+#pragma unroll
+  for (int v = 0; v < kVecs; ++v) {
+    const unsigned* l = limb[v / 2] + 8 * (v % 2);
+    tile[threadIdx.x * kStaged + v] =
+        make_int4((int)(l[0] | l[1] << 16), (int)(l[2] | l[3] << 16),
+                  (int)(l[4] | l[5] << 16), (int)(l[6] | l[7] << 16));
+  }
+  __syncthreads();
+
+  const long long left = n_pad - p0;
+  const int vecs = (int)(left < kPackPoints ? left : kPackPoints) * kVecs;
+  int4* out = rows + p0 * kVecs;
+  for (int i = threadIdx.x; i < vecs; i += kPackPoints)
+    out[i] = tile[(i / kVecs) * kStaged + i % kVecs];
+}
+
+}  // namespace
+
+// y_neg null: a (n_pad, 16) table of x and y; else (n_pad, 24) with -y.
+extern "C" int tpu_msm_pack_rows(const int* x, const int* y,
+                                 const int* y_neg, int* rows, long long n,
+                                 long long n_pad, void* stream) {
+  const long long blocks = (n_pad + kPackPoints - 1) / kPackPoints;
+  if (n < 0 || n_pad < n || n_pad <= 0 || blocks > INT_MAX ||
+      reinterpret_cast<uintptr_t>(rows) % sizeof(int4))
+    return (int)cudaErrorInvalidValue;
+  int4* table = reinterpret_cast<int4*>(rows);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (y_neg != nullptr)
+    pack_rows_kernel<3><<<(unsigned)blocks, kPackPoints, 0, s>>>(
+        x, y, y_neg, table, n, n_pad);
+  else
+    pack_rows_kernel<2><<<(unsigned)blocks, kPackPoints, 0, s>>>(
+        x, y, nullptr, table, n, n_pad);
   return (int)cudaGetLastError();
 }

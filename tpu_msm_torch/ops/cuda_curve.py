@@ -34,6 +34,10 @@ There is no fallback from one to the other.
   scan_madd_      scan_madd_sorted_      scan_madd_packed_u16_f15d (:799)
   sorted          kernel                 after that gather: scan_layout and
                                          scan_madd in one kernel
+  pack_rows       pack_rows_kernel       no Pallas kernel: the point-major
+                  (csrc/layout.cu)       table of packed words that
+                                         pippenger.py builds with XLA
+                                         (:633-636 and :292)
 
 padd, fold_add and pmadd each launch one of two kernels: one thread an
 element (padd_kernel, fold_add_kernel, pmadd_kernel; for fold_add an
@@ -43,12 +47,13 @@ for the width and the card's SM count. scan_madd_rows launches its three
 kernels (chunk totals, their running sums, each chunk's scan) at the K
 chunks of the step axis that `scan_rows_chunks` gives, or the caller.
 
-The fused MSM path runs scan_madd_sorted (one launch per group of
-windows: the scan, each step's point read from the point-major table in
-sort order), padd, fold_add, window_tail and horner; the per-window path
-runs pmadd (one launch per scan step), padd, fold_add, window_tail (once
-per window) and horner. scan_madd_sorted computes scan_madd(*scan_layout(
-...)) without writing the layout; the pair stays as the reference it is
+The fused MSM path runs pack_rows (the point-major table, one launch a
+call), scan_madd_sorted (one launch per group of windows: the scan, each
+step's point read from that table in sort order), padd, fold_add,
+window_tail and horner; the per-window path runs pmadd (one launch per
+scan step), padd, fold_add, window_tail (once per window) and horner.
+scan_madd_sorted computes scan_madd(*scan_layout(...)) without writing
+the layout; the pair stays as the reference it is
 held to on the card, scan_layout in the sort bench
 (`benches/sort_benchmark.py` (b)). scan_madd, jac_madd, jac_add
 and scan_madd_rows run in the profiler's kernel check
@@ -93,6 +98,13 @@ from tpu_msm_torch.ops import curve, ec_rows, field, library
 from tpu_msm_torch.ops.curve import AffinePoint, ProjPoint
 
 _I32, _I64 = torch.int32, torch.int64
+
+
+def pack_u16_rows(a: torch.Tensor) -> torch.Tensor:
+    """(16, N) canonical u16 rows -> (8, N) int32 words: row 2i in the low
+    half of word i, row 2i+1 in the high half (the u32 bit pattern)."""
+    v = a[0::2].to(torch.int64) | (a[1::2].to(torch.int64) << 16)
+    return torch.where(v >= 1 << 31, v - (1 << 32), v).to(torch.int32)
 
 
 def unpack_u16_pairs(words: torch.Tensor) -> torch.Tensor:
@@ -209,6 +221,76 @@ def scan_madd(gx: torch.Tensor, gy: torch.Tensor) -> torch.Tensor:
 
 
 scan_madd.launches = 0
+
+
+# --------------------------------------------------------------------------
+# pack_rows: the point-major table of packed words that the scan reads
+# (csrc/layout.cu).
+# --------------------------------------------------------------------------
+
+def _check_pack_rows(x, y, y_neg, n_pad: int) -> None:
+    coords = (x, y) + (() if y_neg is None else (y_neg,))
+    if x.dim() != 2 or x.shape[0] != 16 or any(
+            c.shape != x.shape or c.dtype != _I32 for c in coords):
+        raise ValueError("pack_rows coordinates must all be (16, n) int32, "
+                         f"got {[(tuple(c.shape), c.dtype) for c in coords]}")
+    if n_pad < x.shape[1]:
+        raise ValueError(f"pack_rows n_pad {n_pad} is below n {x.shape[1]}")
+
+
+def pack_rows_plain(x: torch.Tensor, y: torch.Tensor, y_neg,
+                    n_pad: int) -> torch.Tensor:
+    """The point-major table of packed words that the scan reads: (n_pad,
+    16) int32 [x | y], or (n_pad, 24) [x | y | -y] with y_neg. Row p holds
+    point p's words (`pack_u16_rows` of each coordinate); rows n to
+    n_pad - 1 are zero, the (0, 0) point. x, y and y_neg (or None): (16, n)
+    int32 u16 limbs."""
+    pack_rows_plain.calls += 1
+    _check_pack_rows(x, y, y_neg, n_pad)
+    coords = (x, y) + (() if y_neg is None else (y_neg,))
+    words = torch.cat([pack_u16_rows(a) for a in coords])
+    rows = words.new_zeros((n_pad, words.shape[0]))
+    rows[:x.shape[1]] = words.t()
+    return rows
+
+
+pack_rows_plain.calls = 0
+
+
+def _pack_rows_fake(x, y, y_neg, n_pad):
+    return torch.empty((n_pad, 16 if y_neg is None else 24), dtype=_I32,
+                       device=x.device)
+
+
+def _pack_rows_cuda(x, y, y_neg, n_pad):
+    _check_pack_rows(x, y, y_neg, n_pad)
+    rows = _pack_rows_fake(x, y, y_neg, n_pad)
+    if n_pad:
+        _build.launch("tpu_msm_pack_rows", x.device, x, y, y_neg, rows,
+                      x.shape[1], n_pad)
+        pack_rows.launches += 1
+    return rows
+
+
+def _pack_rows_cpu(x, y, y_neg, n_pad):
+    return pack_rows_plain(x, y, y_neg, n_pad)
+
+
+_PACK_ROWS = library.define(
+    "pack_rows(Tensor x, Tensor y, Tensor? y_neg, int n_pad) -> Tensor",
+    cuda=_pack_rows_cuda, cpu=_pack_rows_cpu, fake=_pack_rows_fake)
+
+
+def pack_rows(x: torch.Tensor, y: torch.Tensor, y_neg,
+              n_pad: int) -> torch.Tensor:
+    """Kernel wrapper of pack_rows_plain (same arguments and result): one
+    launch; strided coordinates are made contiguous first."""
+    _build.on_cuda(x, y, *(() if y_neg is None else (y_neg,)))
+    y_neg = None if y_neg is None else y_neg.contiguous()
+    return _PACK_ROWS(x.contiguous(), y.contiguous(), y_neg, n_pad)
+
+
+pack_rows.launches = 0
 
 
 # --------------------------------------------------------------------------

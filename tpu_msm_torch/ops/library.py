@@ -16,6 +16,7 @@ all in the namespace `tpu_msm_torch`:
   scan_madd_rows  tpu_msm_scan_madd_rows             ops/cuda_curve.py
   montmul_chain   tpu_msm_montmul_chain              ops/cuda_curve.py
   scan_layout     tpu_msm_scan_layout                ops/cuda_curve.py
+  pack_rows       tpu_msm_pack_rows                  ops/cuda_curve.py
   scan_madd_sorted tpu_msm_scan_madd_sorted          ops/cuda_curve.py
   digit_hist      tpu_msm_digit_hist                 ops/hist.py
   digit_sort      tpu_msm_digit_sort                 ops/sort.py
@@ -50,7 +51,7 @@ LIB = torch.library.Library(NAMESPACE, "DEF")
 
 OPS = ("scan_madd", "padd", "window_tail", "horner", "fold_add", "pmadd",
        "jac_madd", "jac_add", "scan_madd_rows", "montmul_chain", "digit_hist",
-       "scan_layout", "scan_madd_sorted", "digit_sort")
+       "scan_layout", "scan_madd_sorted", "digit_sort", "pack_rows")
 
 
 def define(schema: str, *, cuda, cpu, fake) -> torch._ops.OpOverload:

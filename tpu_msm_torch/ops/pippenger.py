@@ -34,8 +34,9 @@ on the JAX CPU backend, and the fused ones projectively equal to it.
 `horner_fold` then joins the windows (the horner kernel). Every other EC
 add goes through `ec_add` or `ec_madd` (the padd and pmadd kernels on the
 card, their plain versions on the CPU), every fold through the fold_add
-kernel. The JAX package left the digit sort and the sorted layout to XLA;
-the port sorts by its own radix sort kernel (`ops/sort.digit_sort`, an
+kernel. The JAX package left the point-major table, the digit sort and
+the sorted layout to XLA; the port builds the table in one `pack_rows`
+launch, sorts by its own radix sort kernel (`ops/sort.digit_sort`, an
 int32 permutation), and the fused route's scan reads the sorted points
 itself: a point's 64-byte row, in place of a layout written and read back.
 Everything else is plain torch, as the JAX package left it to XLA.
@@ -64,9 +65,12 @@ import dataclasses
 import torch
 
 from tpu_msm_torch.ops import curve, field, glv, hist, sort, u256
-from tpu_msm_torch.ops.cuda_curve import (fold_add, horner, padd, pmadd,
-                                          scan_layout, scan_madd_sorted,
-                                          window_tail)
+# pack_u16_rows lives beside the kernels that read its words; it is
+# imported from here too, as the JAX package's pippenger.pack_u16_rows.
+from tpu_msm_torch.ops.cuda_curve import (fold_add, horner,  # noqa: F401
+                                          pack_rows, pack_u16_rows, padd,
+                                          pmadd, scan_layout,
+                                          scan_madd_sorted, window_tail)
 from tpu_msm_torch.ops.curve import AffinePoint, ProjPoint
 from tpu_msm_torch.utils.config import MsmConfig, select_config
 from tpu_msm_torch.utils.profiling import span
@@ -152,13 +156,6 @@ def signed_window_digits(scalar_limbs: torch.Tensor, cfg: MsmConfig):
         neg_rows.append(neg)
         carry = neg.to(d.dtype)
     return torch.stack(abs_rows), torch.stack(neg_rows)
-
-
-def pack_u16_rows(a: torch.Tensor) -> torch.Tensor:
-    """(16, N) canonical u16 rows -> (8, N) int32 words: row 2i in the low
-    half of word i, row 2i+1 in the high half (the u32 bit pattern)."""
-    v = a[0::2].to(torch.int64) | (a[1::2].to(torch.int64) << 16)
-    return torch.where(v >= 1 << 31, v - (1 << 32), v).to(torch.int32)
 
 
 def _sorted_scan_inputs(digits, negm, rows, lanes: int,
@@ -547,16 +544,14 @@ def scan_operands(points: AffinePoint, scalar_limbs, cfg: MsmConfig):
     them a group of windows at a time. rows is the point-major table of the
     packed words (`pack_u16_rows`), one row a point: (n_pad, 16) [x | y],
     or (n_pad, 24) [x | y | -y] with signed digits, built once a call (64
-    or 96 bytes a point), so that each window's layout reads a point as one
-    64-byte row."""
+    or 96 bytes a point) by one `pack_rows` launch, so that each window's
+    layout reads a point as one 64-byte row."""
     with span("tpu_msm_torch.pippenger.operands"):
         points, cfg, n, digits, negm, y_neg = _digits(points, scalar_limbs,
                                                       cfg)
-        coords = (points.x, points.y) + (() if y_neg is None else (y_neg,))
         # The padding positions carry the (0, 0) affine infinity: the scan
         # skips it.
-        rows = _pad_cols(torch.cat([pack_u16_rows(a) for a in coords]),
-                         digits.shape[1] - n, 0).t().contiguous()
+        rows = pack_rows(points.x, points.y, y_neg, digits.shape[1])
         return cfg, n, digits, negm, rows
 
 
