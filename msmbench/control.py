@@ -24,15 +24,18 @@ import time
 
 def control_entry(entry, sets, bases, work):
     """The control in the program's place: the reference's MSM over the
-    scalars' low 15 limbs, worked out once a set."""
+    scalars' low 15 limbs, worked out once a set (a set placed on the host
+    is read on the index's device)."""
     from msmbench import reference
+    from msmbench.traffic import to_card
 
     index = work.index()
     answers = {}
 
     def call(k):
         if k not in answers:
-            plain, weighted = reference.limb_sums(sets[k], index)
+            plain, weighted = reference.limb_sums(
+                to_card(sets[k], index.device), index)
             answers[k] = reference.expected(plain, weighted, work.step_log,
                                             limbs=reference.LIMBS - 1)
         return answers[k]

@@ -2,13 +2,16 @@
 
     python -m msmbench --workload <name> --seed <n> --seconds <s> --trace <0|1>
 
-Set-up makes the cell's inputs on the card from the seed (`traffic.py`) and
-makes two warm calls of its own shape. Untraced, the window is a closed
-loop of `msm_best` calls, one caller, each call ending with its affine point
-on the host, for `--seconds`; traced, a stretch of the configuration's
-`trace_calls` calls runs under torch.profiler, then `entry_pairs` pairs of
-`msm_best` and of the call it makes into the layer below on the same
-inputs, each timed with `synchronize`. Then, with the program's state
+Set-up makes the cell's inputs on the card from the seed (`traffic.py`),
+places each where the mix says (card tensors, or numpy arrays in host
+memory that every call copies over) and makes two warm calls of its own
+shape. Untraced, the window is a closed loop of `msm_best` calls, one
+caller, each call ending with its affine point on the host, for
+`--seconds`; traced, a stretch of the configuration's `trace_calls` calls
+runs under torch.profiler, then `entry_pairs` pairs of `msm_best` and of
+the call it makes into the layer below on the same inputs, each timed with
+`synchronize` (the layer below takes card tensors: a host input is copied
+to the card before its timer starts). Then, with the program's state
 freed, the plain reference (`reference.py`) judges every answer the run
 produced, and each metric's reader (`msmbench/metrics/<name>.py`) makes
 its number. The last line on standard output is one JSON object; the
@@ -135,14 +138,14 @@ def run_cell(bench, cell, seed: int, seconds: float, trace: bool, device,
     import tpu_msm_torch as program
     from msmbench import reference, roofline
     from msmbench.trace import CALL_SPAN, Trace, export_events
-    from msmbench.traffic import Workload
+    from msmbench.traffic import Workload, to_card
 
     stamps = [("imports", time.perf_counter())]
     device = torch.device(device)
     cuda = device.type == "cuda"
     work = Workload(cell.mix, cell.n, seed, device)
-    px, py = work.bases()
-    sets = [work.scalars(k) for k in range(cell.mix.scalar_sets)]
+    px, py = work.placed_bases()
+    sets = [work.placed_scalars(k) for k in range(cell.mix.scalar_sets)]
     n_sets = len(sets)
     _sync(device)
     stamps.append(("inputs", time.perf_counter()))
@@ -193,30 +196,37 @@ def run_cell(bench, cell, seed: int, seconds: float, trace: bool, device,
         below = layer_below(program, cell.n, device)
         if below_fault is not None:
             below = below_fault(below)
-        below(px, py, sets[0])  # its own warm call
+
+        def on_card(k):
+            return [to_card(a, device) for a in (px, py, sets[k])]
+
+        below(*on_card(0))  # its own warm call
         _sync(device)
         for j in range(int(cell.config["entry_pairs"])):
             k = j % n_sets
             for side in ((0, 1) if j % 2 == 0 else (1, 0)):
+                args = on_card(k) if side == 1 else None
+                _sync(device)
                 t = time.perf_counter()
                 if side == 0:
                     answers.append((k, _answer(entry, k)))
                 else:
-                    below(px, py, sets[k])
+                    below(*args)
                 _sync(device)
                 (rec.entry_s if side == 0 else rec.below_s).append(
                     time.perf_counter() - t)
+                del args  # no card copy of a host input outlives its call
             rec.entry_sets.append(k)
     window_peak = torch.cuda.max_memory_allocated(device) if cuda else 0
     rec.peak_bytes = window_peak
 
-    # The table as the program leaves it: sampled rows, copied to the host.
+    # The table as the program leaves it: sampled rows, read on the host
+    # (card tensors' columns copied over, host arrays' read where they lie).
     m = min(cell.n, cell.mix.distinct_bases)
     g = torch.Generator().manual_seed(seed & ((1 << 63) - 1))
     rows = torch.cat([torch.tensor([0, cell.n - 1]),
                       torch.randint(0, cell.n, (TABLE_SAMPLES,), generator=g)])
-    table = [(int(j), px[:, j].cpu().tolist(), py[:, j].cpu().tolist())
-             for j in rows]
+    table = [(j, px[:, j].tolist(), py[:, j].tolist()) for j in rows.tolist()]
     del px, py, sets, entry
     gc.collect()
     if cuda:

@@ -1,7 +1,8 @@
 """`BENCHMARK.json` and the files it names, each found by its name:
 
     configuration  the `file` of its entry in `configs`
-    traffic mix    msmbench/traffic/<traffic>.json
+    traffic mix    msmbench/traffic/<traffic>.json, each key a field of
+                   `traffic.Mix` (an unknown key raises)
     metric         msmbench/metrics/<name>.py, whose read(record) returns
                    the metric's value, or None where it finds nothing to read;
                    a name `<base>.<qualifier>` with no file of its own is

@@ -35,7 +35,8 @@ def test_result_line(tiny_root):
     assert out["correct"] is True and out["failed"] == 0
     assert out["attempted"] > run.WARM_CALLS
     assert set(out["metrics"]) == {"points_per_s", "points_per_s.2p24",
-                                   "msm_ms_p95", "setup_s"}
+                                   "points_per_s.host", "msm_ms_p95",
+                                   "setup_s"}
     assert (out["metrics"]["points_per_s"]
             == out["metrics"]["points_per_s.2p24"])
     for m in out["metrics"].values():
@@ -52,7 +53,7 @@ def test_traced_result_line(tiny_root):
     assert out["correct"] is True
     assert out["attempted"] == run.WARM_CALLS + 3 + 2
     # No card traced: no device metric, and none made up.
-    assert set(out["metrics"]) <= {"entry_ms", "entry_ms.2p24"}
+    assert set(out["metrics"]) <= {"entry_ms", "entry_ms.2p24", "entry_ms.host"}
     assert out["device"]["busy_s"] == 0
     assert set(out["breakdown"]) == {"device_ops", "idle_gaps"}
 

@@ -184,7 +184,7 @@ def test_every_new_entry_has_its_reader():
     bench = Bench()
     names = [m["name"] for m in bench.spec["per_layer"]
              if m["name"].split(".")[0] in READERS]
-    assert len(names) == 12
+    assert len(names) == 13  # 12 of the uniform cells, entry_idle_ms.host
     for name in names:
         assert bench.reader(name)(record(None)) is None
 
@@ -192,7 +192,7 @@ def test_every_new_entry_has_its_reader():
 @pytest.mark.cuda
 def test_every_new_entry_reads_on_the_card(tmp_path, card, monkeypatch):
     """A traced run of a 2^12 cell on the card, streamed in two chunks of
-    2^11: all twelve new entries read, and every device event of the
+    2^11: all thirteen entries of the span readers read, and every device event of the
     window was launched inside a program span."""
     monkeypatch.setattr(tpu_msm_torch, "STREAM_THRESHOLD", 1 << 11)
     bench = Bench(make_root(tmp_path, log_size=12))
@@ -211,7 +211,7 @@ def test_every_new_entry_reads_on_the_card(tmp_path, card, monkeypatch):
     assert out["correct"] is True
     new = {m["name"] for m in bench.spec["per_layer"]
            if m["name"].split(".")[0] in READERS}
-    assert len(new) == 12 and new <= set(out["metrics"])
+    assert len(new) == 13 and new <= set(out["metrics"])
     by_span = device_by_span(traces[0])
     assert by_span.get(None, 0.0) == 0.0
     assert by_span[P + "streaming.chunk"] > 0
